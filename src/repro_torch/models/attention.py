@@ -1,0 +1,248 @@
+"""Attention: blocked causal, banded local-window and decode, for GQA layers.
+
+Plain PyTorch versions of the JAX package's memory-bounded attention
+(`repro/models/attention.py`), with the same blocking so that the two agree
+closely:
+
+* causal attention: "super-row" decomposition, online softmax over kv
+  blocks inside each row band;
+* local (windowed) attention: per q block, a (window + q_block) kv slice;
+* decode: one query against the cache (global) or the ring buffer (local).
+
+With `cfg.use_pallas`, prefill goes through the hand-written flash kernel
+(`repro_torch.kernels.ops.flash_attention`) instead.  Decode stays plain:
+the reference has no decode kernel.  MLA, cross-attention and the
+bidirectional (encoder) path come with their archs (ROADMAP.md).  The JAX
+package's sharding annotations (`constrain`) have no counterpart on one card.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models.params import ParamDesc
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# core attention math (q, k, v already per-head: (B, S, H, D))
+# ---------------------------------------------------------------------------
+
+def _online_rows(q_band, k_band, v_band, scale, kv_block, q_start, k_start):
+    """Online softmax over kv blocks for one q band.
+
+    q_band: (B, Sr, H, D); k/v_band: (B, P, H, D); causal mask from absolute
+    positions (q_start + row, k_start + col).
+    """
+    B, Sr, H, D = q_band.shape
+    nk = k_band.shape[1] // kv_block
+    qt = q_band.transpose(1, 2).float()                      # (B,H,Sr,D)
+    kt = k_band.transpose(1, 2).float()
+    vt = v_band.transpose(1, 2)
+    m = torch.full((B, H, Sr), NEG_INF, device=q_band.device)
+    den = torch.zeros((B, H, Sr), device=q_band.device)
+    acc = torch.zeros((B, H, Sr, v_band.shape[-1]), device=q_band.device)
+    rows = q_start + torch.arange(Sr, device=q_band.device)
+    for j in range(nk):
+        blk = slice(j * kv_block, (j + 1) * kv_block)
+        cols = k_start + j * kv_block + torch.arange(kv_block, device=q_band.device)
+        s = torch.matmul(qt, kt[:, :, blk].transpose(-1, -2)) * scale
+        s = torch.where(cols[None, None, None, :] <= rows[None, None, :, None],
+                        s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        den = den * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.matmul(
+            p.to(vt.dtype).float(), vt[:, :, blk].float())
+        m = m_new
+    o = acc / torch.clamp(den[..., None], min=1e-30)
+    return o.transpose(1, 2).to(q_band.dtype)                 # (B,Sr,H,Dv)
+
+
+def causal_attention(q, k, v, *, scale, n_super=8, kv_block=512):
+    """Exact causal attention, super-row blocked.  q,k,v: (B,S,H,D), S==T."""
+    S = q.shape[1]
+    n_super = max(1, min(n_super, S // max(1, kv_block)))
+    while S % n_super:
+        n_super -= 1
+    Sr = S // n_super
+    kb = math.gcd(Sr, kv_block)
+    outs = [_online_rows(q[:, s * Sr:(s + 1) * Sr], k[:, :(s + 1) * Sr],
+                         v[:, :(s + 1) * Sr], scale, kb, s * Sr, 0)
+            for s in range(n_super)]
+    return torch.cat(outs, dim=1)
+
+
+def local_attention(q, k, v, *, scale, window, q_block=512):
+    """Banded causal attention: key in (query - window, query]."""
+    B, S, H, D = q.shape
+    qb = max(1, math.gcd(S, q_block))
+    W = window
+    pad = (0, 0, 0, 0, W, 0)
+    kp = torch.nn.functional.pad(k, pad)
+    vp = torch.nn.functional.pad(v, pad)
+    r = torch.arange(qb, device=q.device)[:, None]
+    j = torch.arange(W + qb, device=q.device)[None, :]
+    outs = []
+    for i in range(S // qb):
+        qs = q[:, i * qb:(i + 1) * qb]
+        ks = kp[:, i * qb:i * qb + W + qb]
+        vs = vp[:, i * qb:i * qb + W + qb]
+        valid = (j > r) & (j <= W + r) & (i * qb - W + j >= 0)
+        s = torch.einsum("bqhd,bkhd->bhqk", qs.float(), ks.float()) * scale
+        s = torch.where(valid[None, None], s, NEG_INF)
+        w = torch.softmax(s, dim=-1)
+        o = torch.einsum("bhqk,bkhd->bqhd", w.to(vs.dtype).float(), vs.float())
+        outs.append(o.to(q.dtype))
+    return torch.cat(outs, dim=1)
+
+
+def decode_attention(q, k_cache, v_cache, mask, scale):
+    """q: (B, 1, H, D); cache: (B, T, H, D); mask: (B, T) or (T,) bool."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k_cache.float()) * scale
+    if mask.dim() == 1:
+        mask = mask[None]
+    s = torch.where(mask[:, None, None, :], s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhqk,bkhd->bqhd", w.to(v_cache.dtype).float(), v_cache.float())
+    return o.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention layer (params + cache)
+# ---------------------------------------------------------------------------
+
+def attn_descs(cfg: ModelConfig):
+    d, H, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    descs = {
+        "norm": L.norm_descs(cfg),
+        "wq": ParamDesc((d, H, Dh), ("embed", "heads", "head_dim")),
+        "wk": ParamDesc((d, Hkv, Dh), ("embed", "kv_heads", "head_dim")),
+        "wv": ParamDesc((d, Hkv, Dh), ("embed", "kv_heads", "head_dim")),
+        "wo": ParamDesc((H, Dh, d), ("heads", "head_dim", "embed")),
+    }
+    if cfg.qkv_bias:
+        descs["bq"] = ParamDesc((H, Dh), ("heads", "head_dim"), init="zeros")
+        descs["bk"] = ParamDesc((Hkv, Dh), ("kv_heads", "head_dim"), init="zeros")
+        descs["bv"] = ParamDesc((Hkv, Dh), ("kv_heads", "head_dim"), init="zeros")
+    if cfg.qk_norm:
+        descs["q_norm"] = ParamDesc((Dh,), ("head_dim",), init="ones")
+        descs["k_norm"] = ParamDesc((Dh,), ("head_dim",), init="ones")
+    return descs
+
+
+def attn_cache_descs(cfg: ModelConfig, batch: int, seq: int, window: int):
+    Hkv, Dh = cfg.n_kv_heads, cfg.head_dim
+    cdt = L.compute_dtype(cfg)
+    if window > 0:
+        W = min(window, seq)
+        return {
+            "k": ParamDesc((batch, W, Hkv, Dh), ("batch", None, "kv_heads", None), dtype=cdt),
+            "v": ParamDesc((batch, W, Hkv, Dh), ("batch", None, "kv_heads", None), dtype=cdt),
+            "pos": ParamDesc((batch, W), ("batch", None), dtype=torch.int32),
+        }
+    return {
+        "k": ParamDesc((batch, seq, Hkv, Dh), ("batch", "kv_seq", "kv_heads", None), dtype=cdt),
+        "v": ParamDesc((batch, seq, Hkv, Dh), ("batch", "kv_seq", "kv_heads", None), dtype=cdt),
+    }
+
+
+def _project_qkv(cfg: ModelConfig, p, x):
+    cdt = L.compute_dtype(cfg)
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(cdt))
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(cdt))
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(cdt))
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(cdt)
+        k = k + p["bk"].to(cdt)
+        v = v + p["bv"].to(cdt)
+    if cfg.qk_norm:
+        q = L.rms_head_norm(p["q_norm"], q)
+        k = L.rms_head_norm(p["k_norm"], k)
+    return q, k, v
+
+
+def _expand_kv(cfg: ModelConfig, k):
+    """Repeat kv heads to the q-head count: head h reads kv head h // group."""
+    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    return k.repeat_interleave(H // Hkv, dim=2) if H != Hkv else k
+
+
+def apply_attn(cfg: ModelConfig, p, x, *, window: int, causal: bool = True,
+               mode: str = "train", cache=None, pos_t=None):
+    """Returns (out, new_cache).
+
+    Decode writes the new token's k and v into `cache` in place (the JAX
+    package returns an updated copy) and returns the same dict.
+    """
+    B, S, _ = x.shape
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    h = L.apply_norm(cfg, p["norm"], x)
+
+    if mode == "prefill":
+        q, k, v = _project_qkv(cfg, p, h)
+        pos = torch.arange(S, device=x.device)[None]
+        if cfg.pos_embed == "rope":
+            q = L.positions_for(cfg, q, pos)
+            k = L.positions_for(cfg, k, pos)
+        if cfg.use_pallas:
+            from repro_torch.kernels import ops as kops
+            o = kops.flash_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                causal=causal, window=window, scale=scale,
+                block_q=cfg.attn_q_block,
+                block_k=min(cfg.attn_kv_block, cfg.attn_q_block)).transpose(1, 2)
+        elif not causal:
+            raise NotImplementedError("bidirectional attention is ported with "
+                                      "the encoder archs (ROADMAP.md, Queue 1)")
+        else:
+            ke, ve = _expand_kv(cfg, k), _expand_kv(cfg, v)
+            if window > 0:
+                o = local_attention(q, ke, ve, scale=scale, window=window,
+                                    q_block=cfg.attn_q_block)
+            else:
+                o = causal_attention(q, ke, ve, scale=scale,
+                                     kv_block=cfg.attn_kv_block)
+        out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(o.dtype))
+        if window > 0:
+            W = min(window, S)
+            pos_c = torch.arange(S - W, S, device=x.device, dtype=torch.int32)
+            new_cache = {"k": k[:, S - W:], "v": v[:, S - W:],
+                         "pos": pos_c[None].expand(B, W).contiguous()}
+        else:
+            new_cache = {"k": k, "v": v}
+        return x + out, new_cache
+
+    if mode != "decode":
+        raise NotImplementedError(f"mode {mode!r}: training is ported in a "
+                                  f"later slice (ROADMAP.md, Queue 1)")
+    # ---- decode: S == 1 ----
+    if cache is None:
+        raise ValueError("decode needs a cache")
+    q, k, v = _project_qkv(cfg, p, h)
+    pos = torch.full((B, 1), pos_t, device=x.device)
+    if cfg.pos_embed == "rope":
+        q = L.positions_for(cfg, q, pos)
+        k = L.positions_for(cfg, k, pos)
+    if window > 0:
+        W = cache["k"].shape[1]
+        slot = pos_t % W
+        cache["k"][:, slot] = k[:, 0]
+        cache["v"][:, slot] = v[:, 0]
+        cache["pos"][:, slot] = pos_t
+        pos_c = cache["pos"]
+        mask = (pos_c >= 0) & (pos_c <= pos_t) & (pos_c > pos_t - window)
+    else:
+        cache["k"][:, pos_t] = k[:, 0]
+        cache["v"][:, pos_t] = v[:, 0]
+        T = cache["k"].shape[1]
+        mask = torch.arange(T, device=x.device)[None] <= pos_t
+    ke, ve = _expand_kv(cfg, cache["k"]), _expand_kv(cfg, cache["v"])
+    o = decode_attention(q, ke, ve, mask, scale)
+    out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(o.dtype))
+    return x + out, cache

@@ -1,0 +1,151 @@
+"""Shared model primitives: norms, FFN, embeddings, rotary positions.
+
+M-RoPE (qwen2-vl) and sinusoidal positions (whisper) come with their archs
+(ROADMAP.md).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.params import ParamDesc
+
+
+def compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.compute_dtype)
+
+
+# ---------------------------------------------------------------------------
+# activations / norms
+# ---------------------------------------------------------------------------
+
+def act_fn(name: str):
+    if name == "silu":
+        return F.silu
+    if name == "gelu":
+        return lambda x: F.gelu(x, approximate="tanh")
+    raise ValueError(name)
+
+
+def norm_descs(cfg: ModelConfig, d: int | None = None):
+    d = d or cfg.d_model
+    out = {"scale": ParamDesc((d,), ("embed",), init="ones")}
+    if cfg.norm == "layernorm":
+        out["bias"] = ParamDesc((d,), ("embed",), init="zeros")
+    return out
+
+
+def apply_norm(cfg: ModelConfig, p, x, eps: float = 1e-6):
+    xf = x.float()
+    if cfg.norm == "layernorm":
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = xf.var(dim=-1, unbiased=False, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+        y = y * p["scale"].float() + p["bias"].float()
+    else:
+        ms = xf.square().mean(dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + eps) * p["scale"].float()
+    return y.to(x.dtype)
+
+
+def rms_head_norm(scale, x, eps: float = 1e-6):
+    """Per-head qk-norm: normalize the last (head_dim) axis."""
+    xf = x.float()
+    ms = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# dense FFN
+# ---------------------------------------------------------------------------
+
+def ffn_descs(cfg: ModelConfig, d_ff: int | None = None):
+    d, ff = cfg.d_model, d_ff or cfg.d_ff
+    descs = {
+        "norm": norm_descs(cfg),
+        "w1": ParamDesc((d, ff), ("embed", "ff")),
+        "w2": ParamDesc((ff, d), ("ff", "embed")),
+    }
+    if cfg.gated_ffn:
+        descs["w3"] = ParamDesc((d, ff), ("embed", "ff"))
+    else:
+        descs["b1"] = ParamDesc((ff,), ("ff",), init="zeros")
+        descs["b2"] = ParamDesc((d,), ("embed",), init="zeros")
+    return descs
+
+
+def apply_ffn(cfg: ModelConfig, p, x):
+    cdt = compute_dtype(cfg)
+    h = apply_norm(cfg, p["norm"], x)
+    act = act_fn(cfg.act)
+    if cfg.gated_ffn:
+        g = torch.matmul(h, p["w1"].to(cdt))
+        u = torch.matmul(h, p["w3"].to(cdt))
+        out = torch.matmul(act(g) * u, p["w2"].to(cdt))
+    else:
+        z = act(torch.matmul(h, p["w1"].to(cdt)) + p["b1"].to(cdt))
+        out = torch.matmul(z, p["w2"].to(cdt)) + p["b2"].to(cdt)
+    return x + out
+
+
+# ---------------------------------------------------------------------------
+# embeddings / unembedding
+# ---------------------------------------------------------------------------
+
+def embed_descs(cfg: ModelConfig):
+    descs = {"embed": {"table": ParamDesc((cfg.vocab_padded, cfg.d_model),
+                                          ("vocab", "embed"), scale=0.02)}}
+    if not cfg.tie_embeddings:
+        descs["unembed"] = {"table": ParamDesc((cfg.vocab_padded, cfg.d_model),
+                                               ("vocab", "embed"), scale=0.02)}
+    return descs
+
+
+def apply_embed(cfg: ModelConfig, params, tokens):
+    cdt = compute_dtype(cfg)
+    x = params["embed"]["table"][tokens].to(cdt)
+    if cfg.embed_scale:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cdt)
+    return x
+
+
+def unembed_table(cfg: ModelConfig, params):
+    if cfg.tie_embeddings:
+        return params["embed"]["table"]
+    return params["unembed"]["table"]
+
+
+# ---------------------------------------------------------------------------
+# positions: RoPE (half-split form)
+# ---------------------------------------------------------------------------
+
+def rope_freqs(cfg: ModelConfig, rot_dim: int, device=None):
+    half = rot_dim // 2
+    exps = torch.arange(0, half, dtype=torch.float32, device=device) / half
+    return 1.0 / (cfg.rope_theta ** exps)  # (half,)
+
+
+def apply_rope(cfg: ModelConfig, x, positions, rot_dim: int | None = None):
+    """x: (..., S, H, D); positions: broadcastable to (..., S)."""
+    D = x.shape[-1]
+    rot = rot_dim or D
+    half = rot // 2
+    inv = rope_freqs(cfg, rot, device=x.device)
+    ang = positions[..., None].float() * inv  # (..., S, half)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:rot]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    if rot < D:
+        out = torch.cat([out, x[..., rot:].to(out.dtype)], dim=-1)
+    return out.to(x.dtype)
+
+
+def positions_for(cfg: ModelConfig, q, pos):
+    """Apply the configured positional scheme to q/k tensors (..., S, H, D)."""
+    if cfg.mrope_sections:
+        raise NotImplementedError("M-RoPE is ported with qwen2-vl-7b "
+                                  "(ROADMAP.md, Queue 1)")
+    return apply_rope(cfg, q, pos)

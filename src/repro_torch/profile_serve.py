@@ -1,0 +1,91 @@
+"""Where the time goes when the port serves: prefill and decode, profiled.
+
+Times each phase without the profiler (host clock after a synchronize), then
+runs it again under `torch.profiler` for the device side: busy time (sum of
+the kernels' own device times), the share of the wall time the card was
+idle, kernel launches, and the kernels that take the most device time.
+The cell is `chip_smoke.py`'s: full-width qwen2-1.5b, bf16, batch 4 x 2048
+prompt tokens; decode is profiled over 8 steps.  Prints one JSON line per
+phase.  Needs a CUDA card.
+
+Run:  PYTHONPATH=src python -m repro_torch.profile_serve
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import time
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from repro_torch import serve
+from repro_torch.configs import registry
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer as T
+from repro_torch.models.layers import compute_dtype
+from repro_torch.models.params import init_tree
+from repro_torch.train.steps import make_serve_step
+
+BATCH, PROMPT, STEPS = 4, 2048, 8
+
+
+def _wall_ms(fn, n=1) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def _breakdown(fn, n, wall_ms) -> dict:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    evs = prof.key_averages()
+    kernels = sorted((e for e in evs if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.self_device_time_total, reverse=True)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+    launches = sum(e.count for e in evs if e.key.startswith(("cudaLaunch", "cuLaunch")))
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+            "launches": launches / n,
+            "top_kernels_ms": [[e.key[:70], e.self_device_time_total / 1e3 / n]
+                               for e in kernels[:8]]}
+
+
+def main():
+    dev = resolve_device("cuda")
+    cfg = dataclasses.replace(registry.get_config("qwen2-1.5b"), use_pallas=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = init_tree(T.build_descriptors(cfg), gen, dev, dtype=compute_dtype(cfg))
+    B, P = BATCH, PROMPT
+    prompts = torch.randint(0, cfg.vocab, (B, P), generator=gen, device=dev)
+    serve.serve(cfg, batch=B, prompt_len=P, new_tokens=2, device=dev,
+                params=params, prompts=prompts)          # warm-up
+
+    with torch.no_grad():
+        prefill = lambda: T.prefill(cfg, params, prompts)  # noqa: E731
+        out = {"prefill": _breakdown(prefill, 1, _wall_ms(prefill, 3))}
+        logits, caches = T.prefill(cfg, params, prompts)
+        caches = serve.grow_caches(caches, P, P + 2 * STEPS)
+        step = make_serve_step(cfg)
+        state = {"tok": torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None], "pos": P}
+
+        def decode():
+            state["tok"], _ = step(params, caches, state["tok"], state["pos"])
+            state["pos"] += 1
+
+        out["decode_step"] = _breakdown(decode, STEPS, _wall_ms(decode, STEPS))
+    for phase, nums in out.items():
+        print(json.dumps({"phase": phase, "arch": cfg.name, "batch": B,
+                          "prompt_len": P, **nums}))
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -19,3 +19,8 @@ except ModuleNotFoundError:
     _spec.loader.exec_module(_mod)
     sys.modules["hypothesis"] = _mod
     sys.modules["hypothesis.strategies"] = _mod.strategies
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips with a reason without one")

@@ -1,0 +1,148 @@
+"""The port's attention kernel wrapper and plain version against the JAX
+package's, on the same numpy inputs.
+
+CPU tensors take the port's plain version; the JAX side runs its Pallas
+kernel in interpret mode (as tests/test_kernels.py does) and its oracle.
+The `cuda` cases run the hand-written kernel and skip without a card.
+"""
+import types
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+
+SHAPES = [  # tests/test_kernels.py:21-28
+    (1, 1, 1, 128, 64),
+    (2, 4, 2, 256, 64),
+    (1, 8, 1, 128, 32),      # MQA
+    (2, 2, 2, 192, 64),      # odd block split
+]
+MASKS = [(True, 0), (True, 64), (False, 0)]
+DTYPES = ["float32", "bfloat16"]
+
+
+def _tol(dtype):
+    # tests/test_kernels.py:12-14: bf16 rounds p before the PV product
+    return dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" \
+        else dict(rtol=2e-5, atol=2e-5)
+
+
+@pytest.fixture(scope="module")
+def jref():
+    """The JAX package's kernel API and oracles (imported here, so that the
+    `cuda` cases of this file also run where JAX is not installed)."""
+    jax = pytest.importorskip("jax")
+    from repro.kernels import ops, ref
+    return types.SimpleNamespace(jnp=jax.numpy, ops=ops, ref=ref)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the flash kernel runs only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False   # the plain version in full f32
+    return torch.device("cuda")
+
+
+def _inputs(B, Hq, Hkv, S, D, seed=0, T=None):
+    rng = np.random.default_rng(seed)
+    T = S if T is None else T
+    return (rng.standard_normal((B, Hq, S, D), dtype=np.float32),
+            rng.standard_normal((B, Hkv, T, D), dtype=np.float32),
+            rng.standard_normal((B, Hkv, T, D), dtype=np.float32))
+
+
+def _torch(arrs, dtype, device="cpu"):
+    return [torch.from_numpy(a).to(device=device, dtype=getattr(torch, dtype)) for a in arrs]
+
+
+def _np(t):
+    return t.float().cpu().numpy()
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,D", SHAPES)
+@pytest.mark.parametrize("causal,window", MASKS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_port_attention_matches_reference(jref, B, Hq, Hkv, S, D, causal,
+                                          window, dtype):
+    arrs = _inputs(B, Hq, Hkv, S, D)
+    jq, jk, jv = (jref.jnp.asarray(a).astype(dtype) for a in arrs)
+    exp_kernel = jref.ops.flash_attention(jq, jk, jv, causal=causal, window=window,
+                                          block_q=64, block_k=64)
+    exp_ref = jref.ref.ref_attention(jq, jk, jv, causal=causal, window=window)
+    q, k, v = _torch(arrs, dtype)
+    flash_attention.launches = 0
+    got_plain = tref.ref_attention(q, k, v, causal=causal, window=window)
+    got_ops = tops.flash_attention(q, k, v, causal=causal, window=window,
+                                   block_q=64, block_k=64)
+    assert flash_attention.launches == 0  # CPU tensors never reach the kernel
+    for got in (got_plain, got_ops):
+        assert got.dtype == q.dtype and got.shape == q.shape
+        for exp in (exp_kernel, exp_ref):
+            np.testing.assert_allclose(_np(got), np.asarray(exp, np.float32),
+                                       **_tol(dtype))
+
+
+@pytest.mark.parametrize("S,T,D", [(100, 100, 16), (37, 37, 32), (1000, 1000, 64),
+                                   (40, 150, 32)])
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_ragged_lengths_match_reference_oracle(jref, S, T, D, causal, window):
+    arrs = _inputs(1, 4, 2, S, D, seed=S, T=T)
+    exp = jref.ref.ref_attention(*(jref.jnp.asarray(a) for a in arrs),
+                                 causal=causal, window=window)
+    got = tops.flash_attention(*_torch(arrs, "float32"), causal=causal, window=window)
+    np.testing.assert_allclose(_np(got), np.asarray(exp), **_tol("float32"))
+
+
+def test_wrapper_rejects_bad_shapes_and_devices():
+    q, k, v = _torch(_inputs(1, 3, 2, 16, 16), "float32")
+    with pytest.raises(ValueError, match="Hq % Hkv"):
+        tops.flash_attention(q, k, v)
+    q, k, v = (t.to("meta") for t in _torch(_inputs(1, 2, 2, 16, 16), "float32"))
+    with pytest.raises(ValueError, match="CUDA device"):
+        tops.flash_attention(q, k, v)   # no fallback off the CPU
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Hq,Hkv,S,D", SHAPES + [(2, 4, 2, 100, 16), (1, 12, 2, 300, 128)])
+@pytest.mark.parametrize("causal,window", MASKS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_kernel_matches_plain(cuda, B, Hq, Hkv, S, D, causal, window, dtype):
+    q, k, v = _torch(_inputs(B, Hq, Hkv, S, D), dtype, cuda)
+    flash_attention.launches = 0
+    got = tops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == 1
+    exp = tref.ref_attention(q, k, v, causal=causal, window=window)
+    np.testing.assert_allclose(_np(got), _np(exp), **_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,T", [(40, 150), (150, 150), (70, 200)])
+@pytest.mark.parametrize("causal,window", MASKS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_kernel_ragged_and_longer_kv(cuda, S, T, causal, window, dtype):
+    q, k, v = _torch(_inputs(2, 4, 2, S, 64, T=T), dtype, cuda)
+    got = tops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    exp = tref.ref_attention(q, k, v, causal=causal, window=window)
+    np.testing.assert_allclose(_np(got), _np(exp), **_tol(dtype))
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_reads_strided_views(cuda):
+    """(B, S, H, D) projections seen as (B, H, S, D) go in without a copy,
+    and give what the contiguous layout and the plain version give."""
+    q, k, v = _torch(_inputs(2, 4, 2, 96, 64), "bfloat16", cuda)
+    qs, ks, vs = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
+    got = tops.flash_attention(qs, ks, vs, causal=True)
+    exp = tops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(_np(got), _np(exp))
+    plain = tref.ref_attention(qs, ks, vs, causal=True)
+    np.testing.assert_allclose(_np(got), _np(plain), **_tol("bfloat16"))
