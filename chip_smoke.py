@@ -2,15 +2,21 @@
 
 Phases, in order (any failure raises, and the script exits non-zero without
 its last line):
-  1. build every CUDA kernel of the port with nvcc (sm_90a);
-  2. hold each kernel against its plain PyTorch version on the card;
-  3. check the model on a small input: the kernel path on the card against
-     the plain path on the CPU;
-  4. serve full-width qwen2-1.5b (bf16, flash kernel in prefill): batch 4,
-     2048-token prompts, 64 new tokens; count the kernel's launches on that
-     path; check decode against prefill;
-  5. time each kernel at the serving shape beside its bound, its plain
-     version and the matching PyTorch library call;
+  1. build every CUDA kernel of the port with nvcc (sm_90a), one nvcc per
+     source, all started together, and print ptxas's report of each instance;
+  2. hold each kernel against its plain PyTorch version on the card: flash
+     attention (head_dim 16-256), the Mamba selective scan and the RG-LRU
+     scan, over the tests' shapes, ragged shapes and the serving shapes;
+  3. check each model on a small input: reduced qwen2-1.5b, falcon-mamba-7b
+     and recurrentgemma-9b (2 repeats per layer group), the kernel path on
+     the card against the plain path on the CPU;
+  4. serve full-width qwen2-1.5b, falcon-mamba-7b and recurrentgemma-9b
+     (bf16, the kernels in prefill): batch 4, 2048-token prompts, 64 new
+     tokens; count each kernel's launches on each path; check decode
+     against prefill in bf16 and in f32, each model freed before the next;
+  5. time each kernel at its serving shape beside its bound, its plain
+     version and, where one PyTorch call computes the same function, that
+     call;
 then print the `kernels` line, the card's name and power limit, and
 {"ok": true, "device": {...}} as the last line.
 
@@ -30,10 +36,27 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 PEAK_BF16_FLOPS = 989e12    # H100 SXM dense bf16 tensor-core rate
+PEAK_F32_FLOPS = 67e12      # H100 SXM f32 rate of the CUDA cores (no tensor cores)
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3 bandwidth
 BATCH, PROMPT, NEW = 4, 2048, 64
-SERVE_SHAPE = dict(B=BATCH, Hq=12, Hkv=2, S=PROMPT, D=128)   # qwen2-1.5b prefill
-TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}            # tests/test_kernels.py
+ARCHS = ("qwen2-1.5b", "falcon-mamba-7b", "recurrentgemma-9b")
+KERNELS = ("flash_attention", "mamba_scan", "rglru_scan")
+# launches of each kernel in one full-width prefill (= one serve: decode is plain)
+SERVE_LAUNCHES = {
+    "qwen2-1.5b": {"flash_attention": 28, "mamba_scan": 0, "rglru_scan": 0},
+    "falcon-mamba-7b": {"flash_attention": 0, "mamba_scan": 64, "rglru_scan": 0},
+    "recurrentgemma-9b": {"flash_attention": 12, "mamba_scan": 0, "rglru_scan": 26},
+}
+# the kernels' shapes in those prefills
+SERVE_SHAPE = dict(B=BATCH, Hq=12, Hkv=2, S=PROMPT, D=128)        # qwen2-1.5b attention
+LOCAL_SHAPE = dict(B=BATCH, Hq=16, Hkv=1, S=PROMPT, D=256)        # recurrentgemma-9b local layers
+LOCAL_WINDOW = 2048
+MAMBA_SHAPE = dict(B=BATCH, S=PROMPT, D=8192, N=16)               # falcon-mamba-7b, dt_rank 256
+MAMBA_DT_RANK = 256
+RGLRU_SHAPE = dict(B=BATCH, S=PROMPT, W=4096)                     # recurrentgemma-9b, f32 a and b
+# tests/test_kernels.py's tolerances
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}                 # flash attention, RG-LRU scan
+MAMBA_TOL = {torch.float32: 5e-5, torch.bfloat16: 5e-2}
 
 
 def log(phase: str, **nums):
@@ -53,6 +76,20 @@ def cuda_ms(fn, reps=20, warmup=3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def wrappers() -> dict:
+    from repro_torch.kernels import ops
+    return {name: getattr(ops, name) for name in KERNELS}
+
+
+def check(kernel: str, out, exp, tol: float, **case) -> float:
+    """Max abs error of `out` against `exp`; raises past rtol = atol = tol."""
+    err = (out.float() - exp.float()).abs().max().item()
+    log(f"{kernel}_vs_plain", **case, max_abs_err=err, tol=tol)
+    if not torch.allclose(out.float(), exp.float(), rtol=tol, atol=tol):
+        raise AssertionError(f"{kernel} disagrees with its plain version: {case}")
+    return err
+
+
 def attn_inputs(gen, B, Hq, Hkv, S, D, dtype, layout="bshd"):
     """q (B,Hq,S,D), k and v (B,Hkv,S,D).  With layout "bshd" they are the
     strided views the main path hands the kernel: (B,S,H,D) projections
@@ -65,57 +102,138 @@ def attn_inputs(gen, B, Hq, Hkv, S, D, dtype, layout="bshd"):
     return mk(Hq), mk(Hkv), mk(Hkv)
 
 
+def mamba_inputs(gen, B, S, D, N, dtype, dt_rank=8):
+    """u, dt (B,S,D), A (D,N) f32, and Bm, Cm as the main path gives them:
+    slices of one (B, S, dt_rank + 2N) projection (row stride dt_rank + 2N)."""
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+    u = rn(B, S, D).to(dtype)
+    dt = torch.nn.functional.softplus(rn(B, S, D)).to(dtype)
+    A = -torch.exp(rn(D, N) * 0.5)
+    proj = rn(B, S, dt_rank + 2 * N).to(dtype)
+    return u, dt, A, proj[..., dt_rank:dt_rank + N], proj[..., dt_rank + N:]
+
+
+def rglru_inputs(gen, B, S, W, dtype):
+    """a in (0.5, 1), b normal, h0 normal f32."""
+    a = (0.5 + 0.499 * torch.rand(B, S, W, generator=gen, device="cuda")).to(dtype)
+    b = torch.randn(B, S, W, generator=gen, device="cuda").to(dtype)
+    return a, b, torch.randn(B, W, generator=gen, device="cuda")
+
+
+# ---------------------------------------------------------------------------
+# 1. build
+# ---------------------------------------------------------------------------
+
 def phase_build():
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    lib = build.build()
+    libs = build.build()
     seconds = time.perf_counter() - t0
-    # ptxas's registers, spills and shared memory for each kernel instance
-    report = [ln.split(":", 1)[-1].strip()
-              for ln in lib.with_suffix(".log").read_text().splitlines()
-              if "Compiling entry function" in ln or "Used" in ln or "spill" in ln]
-    log("build", seconds=seconds,
-        library=str(lib.relative_to(Path(__file__).resolve().parent)), ptxas=report)
+    root = Path(__file__).resolve().parent
+    for name, lib in libs.items():
+        # ptxas's registers, spills and shared memory for each kernel instance
+        report = [ln.split(":", 1)[-1].strip()
+                  for ln in lib.with_suffix(".log").read_text().splitlines()
+                  if "Compiling entry function" in ln or "Used" in ln or "spill" in ln]
+        log("build", source=name, seconds=seconds, library=str(lib.relative_to(root)),
+            ptxas=report)
 
 
-def phase_kernel_vs_plain(gen):
+# ---------------------------------------------------------------------------
+# 2. kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def phase_flash_vs_plain(gen) -> float:
     from repro_torch.kernels.ops import flash_attention
     from repro_torch.kernels.ref import ref_attention
-    serve_shape = tuple(SERVE_SHAPE.values())
-    cases = [(shape, "bshd") for shape in [
+    serve_shape, local_shape = tuple(SERVE_SHAPE.values()), tuple(LOCAL_SHAPE.values())
+    masks = [(True, 0), (True, 64), (False, 0)]
+    cases = [(shape, "bshd", m) for shape in [
         (1, 1, 1, 128, 64), (2, 4, 2, 256, 64), (1, 8, 1, 128, 32),
         (2, 2, 2, 192, 64),                        # tests/test_kernels.py:21-28
         (2, 4, 2, 100, 16), (2, 4, 2, 1000, 64),  # ragged lengths
-        serve_shape]]
-    cases.append((serve_shape, "bhsd"))            # and contiguous
+        (2, 16, 1, 300, 256),                      # head_dim 256, MQA
+        serve_shape] for m in masks]
+    cases += [(serve_shape, "bhsd", m) for m in masks]          # and contiguous
+    cases += [((1, 16, 1, 2100, 256), "bshd", (True, LOCAL_WINDOW)),   # past one window
+              (local_shape, "bshd", (True, LOCAL_WINDOW))]             # recurrentgemma-9b
     worst = 0.0
-    for (B, Hq, Hkv, S, D), layout in cases:
-        for causal, window in [(True, 0), (True, 64), (False, 0)]:
-            for dtype in (torch.float32, torch.bfloat16):
-                q, k, v = attn_inputs(gen, B, Hq, Hkv, S, D, dtype, layout)
-                out = flash_attention(q, k, v, causal=causal, window=window)
-                torch.cuda.synchronize()
-                exp = ref_attention(q, k, v, causal=causal, window=window)
-                err = (out.float() - exp.float()).abs().max().item()
-                tol = TOL[dtype]
-                log("flash_vs_plain", shape=[B, Hq, Hkv, S, D], layout=layout, causal=causal,
-                    window=window, dtype=str(dtype), max_abs_err=err, tol=tol)
-                if not torch.allclose(out.float(), exp.float(), rtol=tol, atol=tol):
-                    raise AssertionError(f"flash_attention disagrees with its plain version: "
-                                         f"{B, Hq, Hkv, S, D, layout, causal, window, dtype}")
-                worst = max(worst, err)
+    for (B, Hq, Hkv, S, D), layout, (causal, window) in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = attn_inputs(gen, B, Hq, Hkv, S, D, dtype, layout)
+            out = flash_attention(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            exp = ref_attention(q, k, v, causal=causal, window=window)
+            worst = max(worst, check("flash", out, exp, TOL[dtype], shape=[B, Hq, Hkv, S, D],
+                                     layout=layout, causal=causal, window=window,
+                                     dtype=str(dtype)))
     return worst
 
 
-def phase_small_model(seed):
-    """Reduced qwen2-1.5b in f32: the kernel path on the card against the
-    plain path on the CPU, same weights and prompts."""
+def phase_mamba_vs_plain(gen) -> float:
+    from repro_torch.kernels.ops import mamba_scan
+    from repro_torch.kernels.ref import ref_selective_scan
+    shapes = [(1, 32, 64, 8), (2, 64, 128, 16), (1, 96, 64, 8),   # tests/test_kernels.py:105-109
+              (2, 100, 200, 16), (1, 33, 130, 8)]                   # ragged S and D
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, S, D, N in shapes + [tuple(MAMBA_SHAPE.values())]:
+            serving = (B, S, D, N) == tuple(MAMBA_SHAPE.values())
+            u, dt, A, Bm, Cm = mamba_inputs(gen, B, S, D, N, dtype,
+                                            MAMBA_DT_RANK if serving else 8)
+            # the main path starts from a zero state; the other cases carry one in
+            h0 = None if serving else torch.randn(B, D, N, generator=gen, device="cuda")
+            y, h = mamba_scan(u, dt, A, Bm, Cm, h0)
+            torch.cuda.synchronize()
+            exp_y, exp_h = ref_selective_scan(u, dt, A, Bm, Cm, h0)
+            case = dict(shape=[B, S, D, N], dtype=str(dtype), b_row_stride=Bm.stride(1))
+            worst = max(worst, check("mamba_scan", y, exp_y, MAMBA_TOL[dtype], output="y", **case),
+                        check("mamba_scan", h, exp_h, MAMBA_TOL[dtype], output="h_fin", **case))
+    # the decode/prefill contract: a split with the state carried equals one call
+    u, dt, A, Bm, Cm = mamba_inputs(gen, 2, 64, 96, 16, torch.float32)
+    y, h = mamba_scan(u, dt, A, Bm, Cm)
+    y1, h1 = mamba_scan(u[:, :32], dt[:, :32], A, Bm[:, :32], Cm[:, :32])
+    y2, h2 = mamba_scan(u[:, 32:], dt[:, 32:], A, Bm[:, 32:], Cm[:, 32:], h1)
+    torch.cuda.synchronize()
+    check("mamba_scan", torch.cat([y1, y2], 1), y, 1e-5, output="y", case="state carried")
+    check("mamba_scan", h2, h, 1e-5, output="h_fin", case="state carried")
+    return worst
+
+
+def phase_rglru_vs_plain(gen) -> float:
+    from repro_torch.kernels.ops import rglru_scan
+    from repro_torch.kernels.ref import ref_linear_scan
+    shapes = [(1, 64, 128), (2, 128, 256), (2, 96, 128),    # tests/test_kernels.py:66-70
+              (2, 100, 200), (1, 17, 4096),                 # ragged S and W
+              tuple(RGLRU_SHAPE.values())]
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, S, W in shapes:
+            a, b, h0 = rglru_inputs(gen, B, S, W, dtype)
+            y, h = rglru_scan(a, b, h0)
+            torch.cuda.synchronize()
+            exp_y, exp_h = ref_linear_scan(a, b, h0)
+            case = dict(shape=[B, S, W], dtype=str(dtype))
+            worst = max(worst, check("rglru_scan", y, exp_y, TOL[dtype], output="hs", **case),
+                        check("rglru_scan", h, exp_h, TOL[dtype], output="h_fin", **case))
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# 3. small models: kernel path on the card against plain path on the CPU
+# ---------------------------------------------------------------------------
+
+def phase_small_model(arch, seed):
+    """Reduced `arch` in f32 with 2 repeats of each layer group: the kernel
+    path on the card against the plain path on the CPU, same weights and
+    prompts."""
     from repro_torch import serve
     from repro_torch.configs import registry
     from repro_torch.models import transformer as T
     from repro_torch.models.params import init_tree, tree_map
-    cfg = registry.smoke_config("qwen2-1.5b")
-    cfg = dataclasses.replace(cfg, blocks=((cfg.blocks[0][0], 2),))
+    cfg = registry.smoke_config(arch)
+    cfg = dataclasses.replace(cfg, blocks=tuple((p, 2) for p, _ in cfg.blocks))
     gen = torch.Generator(device="cpu")
     gen.manual_seed(seed)
     params = init_tree(T.build_descriptors(cfg), gen, "cpu")
@@ -130,99 +248,214 @@ def phase_small_model(seed):
         run[dev] = (logits.cpu(), res["tokens"].cpu())
     err = (run["cpu"][0] - run["cuda"][0]).abs().max().item()
     same = bool(torch.equal(run["cpu"][1], run["cuda"][1]))
-    log("small_model", max_abs_err=err, tol=1e-4, greedy_tokens_equal=same)
+    log("small_model", arch=arch, max_abs_err=err, tol=1e-4, greedy_tokens_equal=same)
     if err > 1e-4 or not same:
-        raise AssertionError("the kernel path on the card disagrees with the plain path on the CPU")
+        raise AssertionError(f"{arch}: the kernel path on the card disagrees with the "
+                             f"plain path on the CPU")
 
 
-def phase_serve(seed):
-    from repro_torch import serve
-    from repro_torch.configs import registry
-    from repro_torch.kernels.ops import flash_attention
+# ---------------------------------------------------------------------------
+# 4. serve at full width
+# ---------------------------------------------------------------------------
+
+def draw(cfg, seed):
+    """Weights from `seed`, stored in the compute dtype (but the leaves read
+    in f32), and B prompts of P + 1 tokens."""
     from repro_torch.models import transformer as T
     from repro_torch.models.layers import compute_dtype
     from repro_torch.models.params import init_tree
-    cfg = dataclasses.replace(registry.get_config("qwen2-1.5b"), use_pallas=True)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    p = init_tree(T.build_descriptors(cfg), g, "cuda", dtype=compute_dtype(cfg))
+    return p, torch.randint(0, cfg.vocab, (BATCH, PROMPT + 1), generator=g, device="cuda")
 
-    def draw(c, s):
-        """Weights from seed `s`, stored in the compute dtype, and prompts."""
-        g = torch.Generator(device="cuda")
-        g.manual_seed(s)
-        p = init_tree(T.build_descriptors(c), g, "cuda", dtype=compute_dtype(c))
-        return p, torch.randint(0, c.vocab, (BATCH, PROMPT + 1), generator=g, device="cuda")
 
+def decode_vs_prefill(cfg, params, toks, seed, tol):
+    """Decode token P after a P-token prefill == the last position of a
+    (P+1)-token prefill, with argmax equal."""
+    from repro_torch import serve
+    from repro_torch.models import transformer as T
+    with torch.no_grad():
+        logits_p, caches = T.prefill(cfg, params, toks[:, :PROMPT])
+        caches = serve.grow_caches(caches, PROMPT, PROMPT + 1)
+        logits_d, _ = T.decode_step(cfg, params, caches, toks[:, PROMPT:], PROMPT)
+        del caches
+        logits_f, _ = T.prefill(cfg, params, toks)
+    if not (torch.isfinite(logits_p).all() and torch.isfinite(logits_d).all()):
+        raise AssertionError(f"{cfg.name}: non-finite logits")
+    diff = (logits_d - logits_f).abs()
+    same = bool(torch.equal(logits_d.argmax(-1), logits_f.argmax(-1)))
+    log("decode_vs_prefill", arch=cfg.name, compute_dtype=cfg.compute_dtype, seed=seed,
+        n_layers=cfg.n_layers, max_abs_err=diff.max().item(), mean_abs_err=diff.mean().item(),
+        tol=tol, logits_abs_max=logits_f.abs().max().item(), argmax_equal=same)
+    if not torch.allclose(logits_d, logits_f, rtol=tol, atol=tol) or not same:
+        raise AssertionError(f"{cfg.name}: decode disagrees with prefill "
+                             f"({cfg.compute_dtype}, seed {seed})")
+
+
+def phase_serve(arch, seed) -> dict:
+    """Serve full-width `arch` in bf16; returns each kernel's launches in
+    the served run.
+
+    Decode vs prefill at full width and full depth: bf16 is held to 5e-2,
+    the repo's own decode-vs-prefill tolerance
+    (tests/test_decode_consistency.py:49), since bf16 rounding of the
+    residual stream compounds over the layers; f32 to 1e-4, the CPU tests'
+    model tolerance.  qwen2-1.5b's bf16 check also runs on a second seed.
+    The bf16 weights are freed before the f32 copy is drawn.
+    """
+    from repro_torch import serve
+    from repro_torch.configs import registry
+    cfg = dataclasses.replace(registry.get_config(arch), use_pallas=True)
     params, prompts = draw(cfg, seed)
     kw = dict(batch=BATCH, prompt_len=PROMPT, device="cuda", params=params,
               prompts=prompts[:, :PROMPT])
     serve.serve(cfg, new_tokens=2, **kw)     # warm-up: library loading and first-call set-up
 
-    flash_attention.launches = 0
+    ws = wrappers()
+    for w in ws.values():
+        w.launches = 0
     res = serve.serve(cfg, new_tokens=NEW, **kw)
-    launches = flash_attention.launches
+    launches = {name: w.launches for name, w in ws.items()}
     toks = res["tokens"]
-    log("serve", arch=cfg.name, batch=BATCH, prompt_len=PROMPT, new_tokens=NEW,
+    log("serve", arch=arch, batch=BATCH, prompt_len=PROMPT, new_tokens=NEW,
         prefill_ms=res["prefill_ms"], decode_ms_per_token=res["decode_ms_per_token"],
         tokens_per_s=res["tokens_per_s"], peak_mem_bytes=res["peak_mem_bytes"],
-        flash_launches=launches, n_layers=cfg.n_layers)
-    if launches != cfg.n_layers:
-        raise AssertionError(f"{launches} flash launches in one prefill, want {cfg.n_layers}")
+        launches=launches, n_layers=cfg.n_layers)
+    if launches != SERVE_LAUNCHES[arch]:
+        raise AssertionError(f"{arch}: launches in one prefill {launches}, "
+                             f"want {SERVE_LAUNCHES[arch]}")
     if toks.shape != (BATCH, NEW) or toks.min() < 0 or toks.max() >= cfg.vocab:
-        raise AssertionError(f"bad generated tokens: shape {tuple(toks.shape)}")
+        raise AssertionError(f"{arch}: bad generated tokens: shape {tuple(toks.shape)}")
 
-    # Decode token P after a P-token prefill == the last position of a
-    # (P+1)-token prefill, at full width.  f32 holds it to 1e-4 (the CPU
-    # tests' model tolerance).  bf16 is held to 5e-2, the repo's own
-    # decode-vs-prefill tolerance (tests/test_decode_consistency.py:49): the
-    # 2e-2 kernel tolerance bounds one attention call, and here bf16 rounding
-    # of the residual stream compounds over 28 layers.  bf16 is checked on
-    # two seeds (weights and prompts), so the limit rests on two readings.
+    decode_vs_prefill(cfg, params, prompts, seed, 5e-2)
+    del params, prompts, kw
+    torch.cuda.empty_cache()
     f32 = dataclasses.replace(cfg, compute_dtype="float32")
-    for c, s, tol in ((f32, seed, 1e-4), (cfg, seed, 5e-2), (cfg, seed + 1, 5e-2)):
-        p, toks_s = (params, prompts) if c is cfg and s == seed else draw(c, s)
-        with torch.no_grad():
-            logits_p, caches = T.prefill(c, p, toks_s[:, :PROMPT])
-            caches = serve.grow_caches(caches, PROMPT, PROMPT + 1)
-            logits_d, _ = T.decode_step(c, p, caches, toks_s[:, PROMPT:], PROMPT)
-            logits_f, _ = T.prefill(c, p, toks_s)
-        if not (torch.isfinite(logits_p).all() and torch.isfinite(logits_d).all()):
-            raise AssertionError("non-finite logits")
-        diff = (logits_d - logits_f).abs()
-        log("decode_vs_prefill", compute_dtype=c.compute_dtype, seed=s,
-            max_abs_err=diff.max().item(), mean_abs_err=diff.mean().item(), tol=tol,
-            logits_abs_max=logits_f.abs().max().item(),
-            argmax_equal=bool(torch.equal(logits_d.argmax(-1), logits_f.argmax(-1))))
-        if not torch.allclose(logits_d, logits_f, rtol=tol, atol=tol):
-            raise AssertionError(f"decode disagrees with prefill ({c.compute_dtype}, seed {s})")
-        del p, caches
+    more = [(cfg, seed + 1, 5e-2)] if arch == "qwen2-1.5b" else []
+    for c, s, tol in more + [(f32, seed, 1e-4)]:
+        p, t = draw(c, s)
+        decode_vs_prefill(c, p, t, s, tol)
+        del p, t
+        torch.cuda.empty_cache()
     return launches
 
 
-def phase_kernel_time(gen, launches, worst_err):
+# ---------------------------------------------------------------------------
+# 5. kernel time at the serving shapes
+# ---------------------------------------------------------------------------
+
+def bound(flops, nbytes, peak_flops):
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def time_flash(gen, shape, window):
     import torch.nn.functional as F
     from repro_torch.kernels.ops import flash_attention
     from repro_torch.kernels.ref import ref_attention
-    s = SERVE_SHAPE
+    s = shape
     q, k, v = attn_inputs(gen, *s.values(), torch.bfloat16)     # the main path's layout
-    out = flash_attention(q, k, v, causal=True)
-    err = (out.float() - ref_attention(q, k, v, causal=True).float()).abs().max().item()
-    ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True))
-    plain_ms = cuda_ms(lambda: ref_attention(q, k, v, causal=True), reps=5)
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True))
-    pairs = s["S"] * (s["S"] + 1) // 2                       # unmasked (row, col) pairs
-    flops = 4 * s["B"] * s["Hq"] * s["D"] * pairs            # QK^T and PV
-    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, out))
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    log("kernel_time", kernel="flash_attention", shape=list(s.values()), dtype="bfloat16",
-        ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=max(t_ops, t_bytes),
-        flops=flops, bytes=nbytes, max_abs_err=err)
-    return {"name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:91",
-            "launches": launches, "max_abs_err": max(err, worst_err), "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": library_ms}
+    run = lambda: flash_attention(q, k, v, causal=True, window=window)  # noqa: E731
+    out = run()
+    err = (out.float() - ref_attention(q, k, v, causal=True, window=window).float()).abs().max().item()
+    ms = cuda_ms(run)
+    plain_ms = cuda_ms(lambda: ref_attention(q, k, v, causal=True, window=window), reps=5)
+    # one library call computes the same function only where the window
+    # covers every causal row (recurrentgemma-9b: window 2048 = S)
+    library_ms = None
+    if window == 0 or window >= s["S"]:
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True))
+    w = window if window > 0 else s["S"]
+    pairs = sum(min(r + 1, w) for r in range(s["S"]))          # unmasked (row, col) pairs
+    flops = 4 * s["B"] * s["Hq"] * s["D"] * pairs               # QK^T and PV
+    b_ms, by = bound(flops, nbytes(q, k, v, out), PEAK_BF16_FLOPS)
+    log("kernel_time", kernel="flash_attention", shape=list(s.values()), window=window,
+        dtype="bfloat16", ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+        bound_by=by, flops=flops, bytes=nbytes(q, k, v, out), max_abs_err=err)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+                bound_by=by, max_abs_err=err)
+
+
+def time_mamba(gen):
+    from repro_torch.kernels.ops import mamba_scan
+    from repro_torch.kernels.ref import ref_selective_scan
+    s = MAMBA_SHAPE
+    u, dt, A, Bm, Cm = mamba_inputs(gen, *s.values(), torch.bfloat16, MAMBA_DT_RANK)
+    y, h = mamba_scan(u, dt, A, Bm, Cm)
+    err = (y.float() - ref_selective_scan(u, dt, A, Bm, Cm)[0]).abs().max().item()
+    ms = cuda_ms(lambda: mamba_scan(u, dt, A, Bm, Cm))
+    plain_ms = cuda_ms(lambda: ref_selective_scan(u, dt, A, Bm, Cm), reps=2, warmup=1)
+    n = s["B"] * s["S"] * s["D"]
+    # per state element: dt*A, exp, dBu, the state update (2), y_t (2); per channel: dt*u
+    flops = 7 * n * s["N"] + n
+    moved = nbytes(u, dt, y, A, h) + 2 * s["B"] * s["S"] * s["N"] * Bm.element_size()
+    b_ms, by = bound(flops, moved, PEAK_F32_FLOPS)
+    log("kernel_time", kernel="mamba_scan", shape=list(s.values()), dtype="bfloat16",
+        b_row_stride=Bm.stride(1), ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+        bound_by=by, flops=flops, bytes=moved, max_abs_err=err)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=by,
+                max_abs_err=err)
+
+
+def time_rglru(gen):
+    from repro_torch.kernels.ops import rglru_scan
+    from repro_torch.kernels.ref import ref_linear_scan
+    s = RGLRU_SHAPE
+    a, b, _ = rglru_inputs(gen, *s.values(), torch.float32)
+    h0 = torch.zeros(s["B"], s["W"], device="cuda")            # as the main path passes it
+    y, h = rglru_scan(a, b, h0)
+    err = (y - ref_linear_scan(a, b, h0)[0]).abs().max().item()
+    ms = cuda_ms(lambda: rglru_scan(a, b, h0))
+    plain_ms = cuda_ms(lambda: ref_linear_scan(a, b, h0), reps=3, warmup=1)
+    flops = 2 * a.numel()
+    b_ms, by = bound(flops, nbytes(a, b, h0, y, h), PEAK_F32_FLOPS)
+    log("kernel_time", kernel="rglru_scan", shape=list(s.values()), dtype="float32",
+        ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=by, flops=flops,
+        bytes=nbytes(a, b, h0, y, h), max_abs_err=err)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=by,
+                max_abs_err=err)
+
+
+SOURCES = {
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:91"),
+    "mamba_scan": ("src/repro_torch/kernels/csrc/mamba_scan.cu",
+                   "src/repro/kernels/mamba_scan.py:56"),
+    "rglru_scan": ("src/repro_torch/kernels/csrc/rglru_scan.cu",
+                   "src/repro/kernels/rglru_scan.py:48"),
+}
+
+
+# one `kernels` entry per kernel and serving shape: (entry name, kernel, arch)
+ENTRIES = (("flash_attention@qwen2-1.5b", "flash_attention", "qwen2-1.5b"),
+           ("flash_attention@recurrentgemma-9b", "flash_attention", "recurrentgemma-9b"),
+           ("mamba_scan", "mamba_scan", "falcon-mamba-7b"),
+           ("rglru_scan", "rglru_scan", "recurrentgemma-9b"))
+
+
+def phase_kernel_time(gen, launches, worst_err) -> list:
+    """One entry of the `kernels` line per kernel and serving shape, each
+    with the launches of the arch whose prefill gives that shape and the
+    times at that shape."""
+    timed = {"flash_attention@qwen2-1.5b": time_flash(gen, SERVE_SHAPE, 0),
+             "flash_attention@recurrentgemma-9b": time_flash(gen, LOCAL_SHAPE, LOCAL_WINDOW),
+             "mamba_scan": time_mamba(gen), "rglru_scan": time_rglru(gen)}
+    out = []
+    for name, kernel, arch in ENTRIES:
+        t = timed[name]
+        source, replaces = SOURCES[kernel]
+        out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                    "launches": launches[arch][kernel],
+                    "max_abs_err": max(t["max_abs_err"], worst_err[kernel]),
+                    "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                    "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    return out
 
 
 def main():
@@ -234,11 +467,16 @@ def main():
     seed = 0
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
+    t0 = time.perf_counter()
     phase_build()
-    worst = phase_kernel_vs_plain(gen)
-    phase_small_model(seed)
-    launches = phase_serve(seed)
-    kernels = [phase_kernel_time(gen, launches, worst)]
+    worst = {"flash_attention": phase_flash_vs_plain(gen),
+             "mamba_scan": phase_mamba_vs_plain(gen),
+             "rglru_scan": phase_rglru_vs_plain(gen)}
+    for arch in ARCHS:
+        phase_small_model(arch, seed)
+    launches = {arch: phase_serve(arch, seed) for arch in ARCHS}
+    kernels = phase_kernel_time(gen, launches, worst)
+    log("done", seconds=time.perf_counter() - t0)
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,

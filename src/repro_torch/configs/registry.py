@@ -10,10 +10,12 @@ import importlib
 
 from repro_torch.configs.base import ModelConfig
 
-ARCH_NAMES = ["qwen2-1.5b"]
+ARCH_NAMES = ["qwen2-1.5b", "falcon-mamba-7b", "recurrentgemma-9b"]
 
 _MODULES = {
     "qwen2-1.5b": "qwen2_1_5b",
+    "falcon-mamba-7b": "falcon_mamba_7b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
 }
 
 

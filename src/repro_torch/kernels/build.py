@@ -1,12 +1,13 @@
-"""Build the port's CUDA kernel with nvcc and load it with ctypes.
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-The kernel is one source, `csrc/flash_attention.cu`, with a plain C entry
-point.  It is compiled on first use, for `sm_90a`, into `build/repro_torch/`
-at the root of the checkout, into a file whose name carries a hash of the
+Each kernel is one source in `csrc/` with a plain C entry point, built on
+first use, for `sm_90a`, into its own shared library in `build/repro_torch/`
+at the root of the checkout.  A library's file name carries a hash of its
 source and the flags: an unchanged source is not rebuilt.  Nothing but the
-sources in the repository goes into the build.  Building needs `nvcc`
-(`CUDA_HOME`, then `/usr/local/cuda`, then `PATH`); a failed build raises
-with nvcc's stderr.
+sources in the repository goes into the build.  `build()` starts one nvcc
+for each source that is not built yet, all together, and waits for them.
+Building needs `nvcc` (`CUDA_HOME`, then `/usr/local/cuda`, then `PATH`); a
+failed build raises with nvcc's stderr.
 """
 from __future__ import annotations
 
@@ -18,7 +19,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = ("flash_attention", "mamba_scan", "rglru_scan")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -35,34 +37,49 @@ def nvcc() -> str:
     return found
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{SOURCE.stem}-{digest.hexdigest()[:16]}.so"
+def source(name: str) -> Path:
+    if name not in SOURCES:
+        raise KeyError(f"no kernel source {name!r}; sources: {SOURCES}")
+    return CSRC / f"{name}.cu"
 
 
-def build() -> Path:
-    """Compile the source unless it is built already; return the library.
+def library_path(name: str) -> Path:
+    digest = hashlib.sha256(source(name).read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build(*names: str) -> dict[str, Path]:
+    """Compile the named sources (all of them by default) unless they are
+    built already; return each one's library.
 
     nvcc's report (`-Xptxas -v`: registers, spills and shared memory of each
-    kernel instance) is kept beside the library as `<name>.log`.
+    kernel instance) is kept beside each library as `<name>.log`.
     """
-    out = library_path()
-    if out.exists():
+    names = names or SOURCES
+    out = {n: library_path(n) for n in names}
+    todo = [n for n in names if not out[n].exists()]
+    if not todo:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed on {SOURCE.name} (exit {proc.returncode}):\n"
-                           f"{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
+    tmp = {n: out[n].with_suffix(f".{os.getpid()}.tmp") for n in todo}
+    procs = {n: subprocess.Popen([nvcc(), *NVCC_FLAGS, "-o", str(tmp[n]), str(source(n))],
+                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for n in todo}
+    failed = []
+    for n, proc in procs.items():
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            tmp[n].unlink(missing_ok=True)
+            failed.append(f"nvcc failed on {n}.cu (exit {proc.returncode}):\n{stderr}")
+            continue
+        out[n].with_suffix(".log").write_text(stdout + stderr)
+        os.replace(tmp[n], out[n])
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return out
 
 
 @functools.cache
-def library() -> ctypes.CDLL:
-    """The built library, loaded once."""
-    return ctypes.CDLL(str(build()))
+def library(name: str) -> ctypes.CDLL:
+    """The built library of one source, loaded once."""
+    return ctypes.CDLL(str(build(name)[name]))

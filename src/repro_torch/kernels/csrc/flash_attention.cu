@@ -8,7 +8,7 @@
 //   s = q.k^T * scale in f32; masked scores are -1e30 (causal: col <= row,
 //   window: col > row - window, both top-left aligned); running m, l, acc in
 //   f32; p is rounded to the input dtype before the PV product; the final
-//   divide floors l at 1e-30.  f32 and bf16; head_dim 16, 32, 64, 128.
+//   divide floors l at 1e-30.  f32 and bf16; head_dim 16, 32, 64, 128, 256.
 //
 // What bounds it on the card: at the serving prefill shape (B=4, S=T=2048,
 // Hq=12, Hkv=2, D=128, bf16, causal) the two products are ~51.5 GFLOP
@@ -17,7 +17,9 @@
 //
 // What the design does about it (first version, simple and right):
 //   * one thread block of 4 warps per (b*Hq + h, 64-row q tile); each warp
-//     owns 16 query rows.  The TPU's sequential kv grid axis becomes a loop
+//     owns 16 query rows.  f32 at head_dim 256 takes 32-row q tiles (8 rows
+//     a warp): its 64-row tiles need 301,056 bytes of shared memory, above
+//     the 232,448 a block may have.  The TPU's sequential kv grid axis becomes a loop
 //     inside the block, and the TPU's `pl.when` block skip becomes the loop
 //     bounds: causal stops at the diagonal tile, a window starts at the tile
 //     holding q_start - window + 1, so local attention stays O(S*W);
@@ -37,11 +39,9 @@ namespace {
 using bf16 = __nv_bfloat16;
 using namespace nvcuda;
 
-constexpr int BQ = 64;                  // query rows per block
 constexpr int BK = 64;                  // kv rows per loop step
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
-constexpr int RW = BQ / WARPS;          // query rows per warp (16)
 constexpr int LDS = BK + 4;             // f32 score tile row stride
 constexpr float MASKED = -1e30f;        // the reference's masked score
 
@@ -50,6 +50,10 @@ template <> struct Pad<float> { static constexpr int v = 4; };
 template <> struct Pad<bf16> { static constexpr int v = 8; };
 
 template <typename T, int D> struct Layout {
+  // query rows per block: 64 (16 a warp, one wmma row tile); 32 for f32 at
+  // head_dim 256, whose 64-row tiles do not fit in shared memory
+  static constexpr int BQ = (sizeof(T) == 4 && D == 256) ? 32 : 64;
+  static constexpr int RW = BQ / WARPS;        // query rows per warp
   static constexpr int LD = D + Pad<T>::v;     // q/k/v tile row stride
   static constexpr int LDP = BK + Pad<T>::v;   // p tile row stride
   static constexpr int LDO = D + 4;            // f32 accumulator row stride
@@ -82,15 +86,15 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Rows [row0, row0 + 64) of a (rows, D) matrix with row stride `stride`
+// Rows [row0, row0 + ROWS) of a (rows, D) matrix with row stride `stride`
 // (elements) into shared memory; rows at or past `n_rows` are zero-filled.
-template <typename T, int D>
+template <typename T, int D, int ROWS>
 __device__ __forceinline__ void load_tile(T* dst, const T* src, long long stride,
                                           int row0, int n_rows) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int CHUNKS = D / VEC;
   constexpr int LD = Layout<T, D>::LD;
-  for (int idx = threadIdx.x; idx < 64 * CHUNKS; idx += THREADS) {
+  for (int idx = threadIdx.x; idx < ROWS * CHUNKS; idx += THREADS) {
     const int r = idx / CHUNKS, c = (idx % CHUNKS) * VEC;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (row0 + r < n_rows)
@@ -103,7 +107,7 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, long long stride
 template <int D>
 __device__ __forceinline__ void warp_scores(const float* q, const float* k, float* s, int lane) {
   constexpr int LD = Layout<float, D>::LD;
-  for (int i = 0; i < RW; ++i) {
+  for (int i = 0; i < Layout<float, D>::RW; ++i) {
     for (int c = lane; c < BK; c += 32) {
       float acc = 0.f;
 #pragma unroll 16
@@ -116,6 +120,7 @@ __device__ __forceinline__ void warp_scores(const float* q, const float* k, floa
 template <int D>
 __device__ __forceinline__ void warp_scores(const bf16* q, const bf16* k, float* s, int) {
   constexpr int LD = Layout<bf16, D>::LD;
+  static_assert(Layout<bf16, D>::RW == 16, "a warp's rows are one wmma tile");
 #pragma unroll
   for (int n = 0; n < BK / 16; ++n) {
     wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
@@ -136,7 +141,7 @@ __device__ __forceinline__ void warp_scores(const bf16* q, const bf16* k, float*
 template <int D>
 __device__ __forceinline__ void warp_pv(const float* p, const float* v, float* acc, int lane) {
   constexpr int LD = Layout<float, D>::LD, LDP = Layout<float, D>::LDP, LDO = Layout<float, D>::LDO;
-  for (int i = 0; i < RW; ++i) {
+  for (int i = 0; i < Layout<float, D>::RW; ++i) {
     for (int d = lane; d < D; d += 32) {
       float a = acc[i * LDO + d];
 #pragma unroll 16
@@ -168,6 +173,7 @@ __device__ __forceinline__ void warp_pv(const bf16* p, const bf16* v, float* acc
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params P) {
   using L = Layout<T, D>;
+  constexpr int BQ = L::BQ, RW = L::RW;
   extern __shared__ __align__(128) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);
   T* sK = sQ + BQ * L::LD;
@@ -186,7 +192,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params P) {
   const T* v = static_cast<const T*>(P.v) + b * P.v_sb + hk * P.v_sh;
   T* o = static_cast<T*>(P.o) + b * P.o_sb + h * P.o_sh;
 
-  load_tile<T, D>(sQ, q, P.q_ss, q0, P.S);
+  load_tile<T, D, BQ>(sQ, q, P.q_ss, q0, P.S);
   for (int i = threadIdx.x; i < BQ * L::LDO; i += THREADS) sO[i] = 0.f;
   __syncthreads();                         // q tile and zeroed acc, even with no kv tile
 
@@ -205,8 +211,8 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params P) {
   for (int kt = kv_begin / BK; kt < kt_end; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();                       // the previous tile is consumed
-    load_tile<T, D>(sK, k, P.k_ss, k0, P.T);
-    load_tile<T, D>(sV, v, P.v_ss, k0, P.T);
+    load_tile<T, D, BK>(sK, k, P.k_ss, k0, P.T);
+    load_tile<T, D, BK>(sV, v, P.v_ss, k0, P.T);
     __syncthreads();
 
     warp_scores<D>(sQ + r0 * L::LD, sK, sS + r0 * LDS, lane);
@@ -266,6 +272,7 @@ cudaError_t launch(const Params& P, int B, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
+  constexpr int BQ = Layout<T, D>::BQ;
   dim3 grid(B * P.Hq, (P.S + BQ - 1) / BQ);
   flash_fwd_kernel<T, D><<<grid, THREADS, bytes, stream>>>(P);
   return cudaGetLastError();
@@ -278,6 +285,7 @@ cudaError_t dispatch_d(const Params& P, int B, int D, cudaStream_t stream) {
     case 32: return launch<T, 32>(P, B, stream);
     case 64: return launch<T, 64>(P, B, stream);
     case 128: return launch<T, 128>(P, B, stream);
+    case 256: return launch<T, 256>(P, B, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -17,7 +17,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import ref_attention
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -26,7 +26,7 @@ def _entry_point():
     """`flash_attention_fwd` of the built library, with its argtypes set
     (`c_void_p` for every pointer and the stream, so none is cut to 32 bits)."""
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn = build.library().flash_attention_fwd
+    fn = build.library("flash_attention").flash_attention_fwd
     fn.argtypes = ([vp, vp, vp, vp, i,          # q, k, v, o, dtype
                     i, i, i, i, i, i]            # B, Hq, Hkv, S, T, D
                    + [ll] * 12                   # (batch, head, seq) strides of q, k, v, o
@@ -35,12 +35,10 @@ def _entry_point():
     return fn
 
 
-def flash_attention(q, k, v, *, causal=True, window=0, scale=None,
-                    block_q=128, block_k=128):
+def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
     """q: (B, Hq, S, D); k, v: (B, Hkv, T, D) -> (B, Hq, S, D) in q's dtype.
 
-    `block_q` and `block_k` are the TPU kernel's tiling hints and are not
-    used: the CUDA kernel tiles 64 x 64 and masks the ragged edge, so any S
+    The CUDA kernel tiles the sequence and masks the ragged edge, so any S
     and T work.  The inputs may be strided views (the last dim contiguous),
     e.g. (B, S, H, D) projections seen as (B, H, S, D).
     `flash_attention.launches` counts the kernel's launches.
@@ -60,23 +58,8 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None,
     if devices != {"cuda"} or len({t.device for t in (q, k, v)}) != 1:
         raise ValueError(f"q, k, v must all be on one CUDA device or all on "
                          f"the CPU; got {[str(t.device) for t in (q, k, v)]}")
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"the kernel takes float32 or bfloat16 q, k, v of one "
-                        f"dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"the kernel takes head_dim in {HEAD_DIMS}; got {D}")
-    if S == 0 or T == 0 or B * Hq == 0:
-        raise ValueError(f"empty attention: q {tuple(q.shape)}, k {tuple(k.shape)}")
-
     out = torch.empty_like(q)
-    vec = 16 // q.element_size()
-    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
-        if (t.stride(3) != 1 or any(st % vec for st in t.stride()[:3])
-                or t.data_ptr() % 16):
-            raise ValueError(f"{name}: the kernel reads rows with 16-byte loads; "
-                             f"it needs a contiguous last dim, 16-byte aligned "
-                             f"data and strides that are multiples of {vec}; "
-                             f"got strides {t.stride()}")
+    check_kernel_inputs(q, k, v, out)
     fn = _entry_point()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -92,3 +75,25 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None,
 
 
 flash_attention.launches = 0
+
+
+def check_kernel_inputs(q, k, v, out):
+    """Raise unless the kernel takes these tensors (of agreeing shapes):
+    one dtype, f32 or bf16; a head_dim it is built for; nothing empty; rows
+    it can read with 16-byte loads."""
+    B, Hq, S, D = q.shape
+    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"the kernel takes float32 or bfloat16 q, k, v of one "
+                        f"dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"the kernel takes head_dim in {HEAD_DIMS}; got {D}")
+    if S == 0 or k.shape[2] == 0 or B * Hq == 0:
+        raise ValueError(f"empty attention: q {tuple(q.shape)}, k {tuple(k.shape)}")
+    vec = 16 // q.element_size()
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+        if (t.stride(3) != 1 or any(st % vec for st in t.stride()[:3])
+                or t.data_ptr() % 16):
+            raise ValueError(f"{name}: the kernel reads rows with 16-byte loads; "
+                             f"it needs a contiguous last dim, 16-byte aligned "
+                             f"data and strides that are multiples of {vec}; "
+                             f"got strides {t.stride()}")

@@ -1,10 +1,12 @@
 """The public kernel API.
 
-`flash_attention` is the kernel wrapper itself (one object, one launch
-counter).  The JAX package's other wrappers, `rglru_scan` and `mamba_scan`,
-and its per-example task bodies (`matmul_task`, `attention_task`) are ported
-in later slices (ROADMAP.md).
+Each name is the kernel wrapper itself (one object, one launch counter):
+`flash_attention`, `mamba_scan` and `rglru_scan`.  The JAX package's
+per-example task bodies (`matmul_task`, `attention_task`) are ported with
+the device tier (ROADMAP.md).
 """
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.mamba_scan import mamba_scan
+from repro_torch.kernels.rglru_scan import rglru_scan
 
-__all__ = ["flash_attention"]
+__all__ = ["flash_attention", "mamba_scan", "rglru_scan"]

@@ -131,8 +131,8 @@ def attn_descs(cfg: ModelConfig):
         descs["bk"] = ParamDesc((Hkv, Dh), ("kv_heads", "head_dim"), init="zeros")
         descs["bv"] = ParamDesc((Hkv, Dh), ("kv_heads", "head_dim"), init="zeros")
     if cfg.qk_norm:
-        descs["q_norm"] = ParamDesc((Dh,), ("head_dim",), init="ones")
-        descs["k_norm"] = ParamDesc((Dh,), ("head_dim",), init="ones")
+        descs["q_norm"] = ParamDesc((Dh,), ("head_dim",), init="ones", f32=True)
+        descs["k_norm"] = ParamDesc((Dh,), ("head_dim",), init="ones", f32=True)
     return descs
 
 
@@ -194,9 +194,7 @@ def apply_attn(cfg: ModelConfig, p, x, *, window: int, causal: bool = True,
             from repro_torch.kernels import ops as kops
             o = kops.flash_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                causal=causal, window=window, scale=scale,
-                block_q=cfg.attn_q_block,
-                block_k=min(cfg.attn_kv_block, cfg.attn_q_block)).transpose(1, 2)
+                causal=causal, window=window, scale=scale).transpose(1, 2)
         elif not causal:
             raise NotImplementedError("bidirectional attention is ported with "
                                       "the encoder archs (ROADMAP.md, Queue 1)")

@@ -32,9 +32,9 @@ def act_fn(name: str):
 
 def norm_descs(cfg: ModelConfig, d: int | None = None):
     d = d or cfg.d_model
-    out = {"scale": ParamDesc((d,), ("embed",), init="ones")}
+    out = {"scale": ParamDesc((d,), ("embed",), init="ones", f32=True)}
     if cfg.norm == "layernorm":
-        out["bias"] = ParamDesc((d,), ("embed",), init="zeros")
+        out["bias"] = ParamDesc((d,), ("embed",), init="zeros", f32=True)
     return out
 
 

@@ -25,8 +25,9 @@ class ParamDesc:
     shape: tuple[int, ...]
     axes: tuple[Any, ...]  # logical axis name (str) or None, per dim
     dtype: torch.dtype | None = torch.float32
-    init: str = "normal"  # normal | zeros | ones
+    init: str = "normal"  # normal | zeros | ones | lru_a
     scale: float | None = None  # None -> 1/sqrt(fan_in)
+    f32: bool = False  # the model reads it in f32: stored in f32 in any compute dtype
 
     def __post_init__(self):
         if len(self.shape) != len(self.axes):
@@ -96,23 +97,30 @@ def init_tree(tree, generator: torch.Generator, device, dtype: torch.dtype | Non
 
     Values are drawn in float32 from `generator` (which must live on
     `device`), leaf by leaf in `tree_leaves` order.  With `dtype`, every
-    floating leaf is stored in that dtype: the model casts each weight to
-    the compute dtype at use, so storing it once in that dtype rounds the
-    same way and halves the memory.
+    floating leaf is stored in that dtype, except those marked `f32`: the
+    model casts a weight to the compute dtype at use, so storing it once in
+    that dtype rounds the same way and halves the memory, while a leaf that
+    the JAX package reads in f32 (norm scales, Mamba's `A_log`, the RG-LRU's
+    `a_param`) keeps f32 so that it is not rounded.
     """
     device = torch.device(device)
 
     def init_one(d: ParamDesc):
         out_dtype = d.dtype if d.dtype is not None else torch.float32
-        if dtype is not None and out_dtype.is_floating_point:
+        if dtype is not None and out_dtype.is_floating_point and not d.f32:
             out_dtype = dtype
         if d.init == "zeros":
             return torch.zeros(d.shape, dtype=out_dtype, device=device)
         if d.init == "ones":
             return torch.ones(d.shape, dtype=out_dtype, device=device)
+        if d.init == "lru_a":
+            # the RG-LRU's Lambda: a = sigmoid(Lambda) ** c with a drawn in
+            # (0.9, 0.999), so sigmoid(Lambda) = a ** (1/c) with c = 8
+            a = torch.rand(d.shape, generator=generator, device=device) * 0.099 + 0.9
+            root = a ** (1.0 / 8.0)
+            return torch.log(root / (1 - root)).to(out_dtype)
         if d.init != "normal":
-            raise NotImplementedError(f"init {d.init!r} comes with the RG-LRU path "
-                                      f"(ROADMAP.md, Queue 1)")
+            raise ValueError(f"unknown init {d.init!r}")
         scale = d.scale if d.scale is not None else 1.0 / math.sqrt(_fan_in(d.shape))
         x = torch.randn(d.shape, generator=generator, device=device, dtype=torch.float32)
         return (x * scale).to(out_dtype)
@@ -121,22 +129,15 @@ def init_tree(tree, generator: torch.Generator, device, dtype: torch.dtype | Non
     return tree_map_desc(lambda d: leaves[id(d)], tree)
 
 
-def params_from_numpy(tree, device, dtype: torch.dtype | None = None):
+def params_from_numpy(tree, device):
     """Numpy arrays (e.g. the JAX package's `init_tree` output, converted by
     the caller) -> tensors on `device`, in the same nested layout.
 
     The layout is the reference's: layer groups stacked along a leading
     `reps` dim, the same key names (``blocks[g]["l0"]["mixer"]["wq"]``, ...).
-    With `dtype`, floating arrays are cast to it; integer arrays keep theirs.
+    Every array keeps its dtype.
     """
-
-    def conv(a):
-        t = torch.from_numpy(np.array(a))     # a writable copy
-        if dtype is not None and t.is_floating_point():
-            t = t.to(dtype)
-        return t.to(device)
-
-    return tree_map(conv, tree)
+    return tree_map(lambda a: torch.from_numpy(np.array(a)).to(device), tree)
 
 
 def count_params(tree) -> int:

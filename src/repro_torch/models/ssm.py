@@ -1,0 +1,175 @@
+"""Mamba-1 selective-state-space block (falcon-mamba-7b).
+
+Plain PyTorch version of the JAX package's `repro/models/ssm.py`.  The
+selective scan h_t = exp(dt_t A) h_{t-1} + dt_t B_t u_t is evaluated as a
+chunked linear recurrence, as there: a loop over time chunks carrying the
+state, with a log-depth scan inside each chunk, so that the (chunk, D, N)
+intermediate is the only expanded tensor.  With `cfg.use_pallas`, prefill
+goes through the hand-written kernel (`repro_torch.kernels.ops.mamba_scan`)
+instead; decode is one plain step, as in the reference.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models.params import ParamDesc
+
+
+def dt_rank(cfg: ModelConfig) -> int:
+    return cfg.ssm.dt_rank or -(-cfg.d_model // 16)
+
+
+def mamba_descs(cfg: ModelConfig):
+    s = cfg.ssm
+    d = cfg.d_model
+    din = s.expand * d
+    dtr = dt_rank(cfg)
+    N, K = s.d_state, s.d_conv
+    return {
+        "norm": L.norm_descs(cfg),
+        "in_proj": ParamDesc((d, 2 * din), ("embed", "inner")),
+        "conv_w": ParamDesc((K, din), (None, "inner")),
+        "conv_b": ParamDesc((din,), ("inner",), init="zeros"),
+        "x_proj": ParamDesc((din, dtr + 2 * N), ("inner", None)),
+        "dt_proj": ParamDesc((dtr, din), (None, "inner")),
+        "dt_bias": ParamDesc((din,), ("inner",), init="zeros"),
+        "A_log": ParamDesc((din, N), ("inner", "state"), init="ones", f32=True),
+        "D": ParamDesc((din,), ("inner",), init="ones"),
+        "out_proj": ParamDesc((din, d), ("inner", "embed")),
+    }
+
+
+def mamba_cache_descs(cfg: ModelConfig, batch: int):
+    s = cfg.ssm
+    din = s.expand * cfg.d_model
+    return {
+        "state": ParamDesc((batch, din, s.d_state), ("batch", "inner", None),
+                           dtype=torch.float32),
+        "conv": ParamDesc((batch, s.d_conv - 1, din), ("batch", None, "inner"),
+                          dtype=L.compute_dtype(cfg)),
+    }
+
+
+def causal_conv(x, w, b):
+    """x: (B, S, D); w: (K, D) depthwise causal conv -> (out, tail), where
+    tail (B, K-1, D) is the last K-1 inputs (the decode cache)."""
+    K, S = w.shape[0], x.shape[1]
+    xp = torch.cat([x.new_zeros((x.shape[0], K - 1, x.shape[2])), x], dim=1)
+    out = 0
+    for i in range(K):
+        out = out + xp[:, i:i + S] * w[i][None, None]
+    return out + b[None, None], xp[:, S:]
+
+
+def conv_step(tail, x, w, b):
+    """One decode step of `causal_conv`: tail (B, K-1, D), x (B, 1, D) ->
+    (out (B, D), the K inputs the step saw)."""
+    window = torch.cat([tail.to(x.dtype), x], dim=1)               # (B, K, D)
+    return torch.einsum("bkd,kd->bd", window, w) + b, window
+
+
+def linear_scan(a, b):
+    """Inclusive scan of h_t = a_t h_{t-1} + b_t over dim 1 from h = 0, in
+    log depth (each step combines elements `off` apart).
+
+    Returns (prod of a up to t, h_t)."""
+    n, off = a.shape[1], 1
+    while off < n:
+        a_cur, b_cur = a[:, off:], b[:, off:]
+        b = torch.cat([b[:, :off], a_cur * b[:, :n - off] + b_cur], dim=1)
+        a = torch.cat([a[:, :off], a_cur * a[:, :n - off]], dim=1)
+        off *= 2
+    return a, b
+
+
+def n_chunks(S: int, chunk: int) -> int:
+    """The JAX package's chunk count: the largest count <= S // chunk that
+    divides S."""
+    nc = max(1, S // chunk)
+    while S % nc:
+        nc -= 1
+    return nc
+
+
+def selective_scan(u, dt, A, Bm, Cm, *, chunk: int, h0=None):
+    """u, dt: (B, S, D); A: (D, N); Bm, Cm: (B, S, N) -> (y f32, h_final f32).
+
+    y_t = C_t . h_t,  h_t = exp(dt_t A) h_{t-1} + dt_t B_t u_t
+    """
+    B, S, D = u.shape
+    N = A.shape[1]
+    ch = S // n_chunks(S, chunk)
+    h = torch.zeros((B, D, N), device=u.device) if h0 is None else h0
+    ys = []
+    for c0 in range(0, S, ch):
+        sl = slice(c0, c0 + ch)
+        dt_ = dt[:, sl].float()
+        dA = torch.exp(dt_[..., None] * A[None, None])                     # (B,ch,D,N)
+        dBu = (dt_ * u[:, sl].float())[..., None] * Bm[:, sl].float()[..., None, :]
+        accA, accB = linear_scan(dA, dBu)
+        hs = accA * h[:, None] + accB                                      # (B,ch,D,N)
+        ys.append(torch.einsum("bcdn,bcn->bcd", hs, Cm[:, sl].float()))
+        h = hs[:, -1]
+    return torch.cat(ys, dim=1), h
+
+
+def _gates(cfg: ModelConfig, p, xc):
+    """The scan's inputs from the conv output: (dt, Bm, Cm).  Bm and Cm are
+    slices of one projection (strided views)."""
+    cdt = L.compute_dtype(cfg)
+    dtr, N = dt_rank(cfg), cfg.ssm.d_state
+    proj = torch.einsum("bsd,de->bse", xc, p["x_proj"].to(cdt))
+    dt_r, Bm, Cm = proj[..., :dtr], proj[..., dtr:dtr + N], proj[..., dtr + N:]
+    dt = F.softplus(torch.einsum("bsr,rd->bsd", dt_r, p["dt_proj"].to(cdt))
+                    + p["dt_bias"].to(cdt))
+    return dt, Bm, Cm
+
+
+def apply_mamba(cfg: ModelConfig, p, x, *, mode="prefill", cache=None, pos_t=None):
+    """Returns (out, new_cache).
+
+    Decode writes the new state and conv tail into `cache` in place (the JAX
+    package returns an updated copy) and returns the same dict.
+    """
+    s = cfg.ssm
+    cdt = L.compute_dtype(cfg)
+    din = s.expand * x.shape[2]
+    h = L.apply_norm(cfg, p["norm"], x)
+    xz = torch.einsum("bsd,de->bse", h, p["in_proj"].to(cdt))
+    xin, z = xz[..., :din], xz[..., din:]
+    A = -torch.exp(p["A_log"].float())
+
+    if mode == "prefill":
+        xc, tail = causal_conv(xin, p["conv_w"].to(cdt), p["conv_b"].to(cdt))
+        xc = F.silu(xc)
+        dt, Bm, Cm = _gates(cfg, p, xc)
+        if cfg.use_pallas:
+            from repro_torch.kernels import ops as kops
+            y, h_fin = kops.mamba_scan(xc, dt, A, Bm, Cm)
+        else:
+            y, h_fin = selective_scan(xc, dt, A, Bm, Cm, chunk=s.chunk)
+        y = y.to(cdt) + xc * p["D"].to(cdt)
+        out = torch.einsum("bsd,de->bse", y * F.silu(z), p["out_proj"].to(cdt))
+        return x + out, {"state": h_fin, "conv": tail}
+
+    if mode != "decode":
+        raise NotImplementedError(f"mode {mode!r}: training is ported in a "
+                                  f"later slice (ROADMAP.md, Queue 1)")
+    if cache is None:
+        raise ValueError("decode needs a cache")
+    xc, window = conv_step(cache["conv"], xin, p["conv_w"].to(cdt), p["conv_b"].to(cdt))
+    xc = F.silu(xc)[:, None]                                           # (B, 1, din)
+    dt, Bm, Cm = _gates(cfg, p, xc)
+    dtf = dt.float()[:, 0]
+    dA = torch.exp(dtf[..., None] * A[None])                           # (B, D, N)
+    dBu = (dtf * xc.float()[:, 0])[..., None] * Bm.float()[:, 0, None, :]
+    h_new = dA * cache["state"] + dBu
+    y = torch.einsum("bdn,bn->bd", h_new, Cm.float()[:, 0])[:, None]
+    y = y.to(cdt) + xc * p["D"].to(cdt)
+    out = torch.einsum("bsd,de->bse", y * F.silu(z), p["out_proj"].to(cdt))
+    cache["state"].copy_(h_new)
+    cache["conv"].copy_(window[:, 1:])
+    return x + out, cache

@@ -5,9 +5,9 @@ The layer stack is a sequence of (pattern, repeats) groups (see
 `reps` dim, as in the JAX package; where that package `lax.scan`s a group,
 the port runs a Python loop over `reps` and slices the stacked parameters.
 
-Only the `attn` mixer with the `dense` FFN is ported; the other layer kinds
-raise and name their ROADMAP.md item.  Training (`forward_train`,
-`chunked_ce_loss`) comes in a later slice.
+The `attn`, `mamba` and `rglru` mixers with the `dense` FFN or none are
+ported; the other layer kinds raise and name their ROADMAP.md item.
+Training (`forward_train`, `chunked_ce_loss`) comes in a later slice.
 """
 from __future__ import annotations
 
@@ -20,14 +20,14 @@ from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import rglru as R
+from repro_torch.models import ssm as SSM
 from repro_torch.models.params import (ParamDesc, init_tree, stack_desc,
                                        tree_map, tree_map_desc)
 
 _NOT_PORTED = {
     "mla": "MoE and MLA (ROADMAP.md, Queue 1)",
     "moe": "MoE and MLA (ROADMAP.md, Queue 1)",
-    "mamba": "the SSM path with kernel 2 (ROADMAP.md, Queue 1)",
-    "rglru": "the RG-LRU path with kernel 3 (ROADMAP.md, Queue 1)",
     "cross_attn": "the remaining archs (ROADMAP.md, Queue 1)",
     "enc_dec": "the remaining archs (ROADMAP.md, Queue 1)",
     "sinusoidal": "the remaining archs (ROADMAP.md, Queue 1)",
@@ -35,7 +35,7 @@ _NOT_PORTED = {
 
 
 def _check_ported(cfg: ModelConfig, spec: LayerSpec):
-    kinds = [spec.mixer if spec.mixer != "attn" else None,
+    kinds = [spec.mixer if spec.mixer not in ("attn", "mamba", "rglru") else None,
              spec.ffn if spec.ffn not in ("dense", "none") else None,
              "cross_attn" if spec.cross_attn else None,
              "enc_dec" if cfg.enc_dec else None,
@@ -52,7 +52,12 @@ def _check_ported(cfg: ModelConfig, spec: LayerSpec):
 
 def layer_descs(cfg: ModelConfig, spec: LayerSpec):
     _check_ported(cfg, spec)
-    d: dict[str, Any] = {"mixer": A.attn_descs(cfg)}
+    if spec.mixer == "mamba":
+        d: dict[str, Any] = {"mixer": SSM.mamba_descs(cfg)}
+    elif spec.mixer == "rglru":
+        d = {"mixer": R.rglru_descs(cfg)}
+    else:
+        d = {"mixer": A.attn_descs(cfg)}
     if spec.ffn == "dense":
         d["ffn"] = L.ffn_descs(cfg)
     return d
@@ -70,6 +75,10 @@ def build_descriptors(cfg: ModelConfig):
 
 
 def layer_cache_descs(cfg: ModelConfig, spec: LayerSpec, batch: int, seq: int):
+    if spec.mixer == "mamba":
+        return {"mixer": SSM.mamba_cache_descs(cfg, batch)}
+    if spec.mixer == "rglru":
+        return {"mixer": R.rglru_cache_descs(cfg, batch)}
     return {"mixer": A.attn_cache_descs(cfg, batch, seq, spec.window)}
 
 
@@ -89,8 +98,13 @@ def apply_layer(cfg: ModelConfig, spec: LayerSpec, p, x, *, mode, cache, pos_t):
     """-> (x, new_cache)."""
     _check_ported(cfg, spec)
     c_mix = cache.get("mixer") if cache else None
-    x, nc = A.apply_attn(cfg, p["mixer"], x, window=spec.window,
-                         causal=spec.causal, mode=mode, cache=c_mix, pos_t=pos_t)
+    if spec.mixer == "mamba":
+        x, nc = SSM.apply_mamba(cfg, p["mixer"], x, mode=mode, cache=c_mix, pos_t=pos_t)
+    elif spec.mixer == "rglru":
+        x, nc = R.apply_rglru(cfg, p["mixer"], x, mode=mode, cache=c_mix, pos_t=pos_t)
+    else:
+        x, nc = A.apply_attn(cfg, p["mixer"], x, window=spec.window,
+                             causal=spec.causal, mode=mode, cache=c_mix, pos_t=pos_t)
     if spec.ffn == "dense":
         x = L.apply_ffn(cfg, p["ffn"], x)
     return x, {"mixer": nc}
@@ -106,8 +120,9 @@ def run_blocks(cfg: ModelConfig, blocks_params, x, *, mode, caches=None,
 
     Prefill returns each group's caches stacked along a leading `reps` dim,
     as the JAX package's scan does.  Decode writes into `caches` in place
-    (each layer's cache is a view of its group's stacked tensor) and returns
-    them.
+    (each layer's cache is a view of its group's stacked tensor; attention
+    writes its new k and v, the recurrent mixers their new state and conv
+    tail) and returns them.
     """
     if mode not in ("prefill", "decode"):
         raise NotImplementedError(f"mode {mode!r}: training is ported in a "
@@ -184,7 +199,8 @@ class Transformer(nn.Module):
     `prefill` and `decode_step`.
 
     With `params=None` the weights are drawn from `generator`, which lives on
-    `device`, and stored once in the compute dtype (see `init_tree`).
+    `device`, and stored once in the compute dtype, but for the leaves read
+    in f32 (see `init_tree`).
     """
 
     def __init__(self, cfg: ModelConfig, params=None, *, generator=None,

@@ -4,14 +4,16 @@ Times each phase without the profiler (host clock after a synchronize), then
 runs it again under `torch.profiler` for the device side: busy time (sum of
 the kernels' own device times), the share of the wall time the card was
 idle, kernel launches, and the kernels that take the most device time.
-The cell is `chip_smoke.py`'s: full-width qwen2-1.5b, bf16, batch 4 x 2048
-prompt tokens; decode is profiled over 8 steps.  Prints one JSON line per
-phase.  Needs a CUDA card.
+The cell is `chip_smoke.py`'s: a full-width model (`--arch`, qwen2-1.5b
+by default), bf16, batch 4 x 2048 prompt tokens; decode is profiled over 8
+steps.  Prints one JSON line per phase.  Needs a CUDA card.
 
-Run:  PYTHONPATH=src python -m repro_torch.profile_serve
+Run:  PYTHONPATH=src python -m repro_torch.profile_serve [--arch qwen2-1.5b |
+          falcon-mamba-7b | recurrentgemma-9b]
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import time
@@ -57,9 +59,12 @@ def _breakdown(fn, n, wall_ms) -> dict:
                                for e in kernels[:8]]}
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="qwen2-1.5b", choices=registry.ARCH_NAMES)
+    args = ap.parse_args(argv)
     dev = resolve_device("cuda")
-    cfg = dataclasses.replace(registry.get_config("qwen2-1.5b"), use_pallas=True)
+    cfg = dataclasses.replace(registry.get_config(args.arch), use_pallas=True)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     params = init_tree(T.build_descriptors(cfg), gen, dev, dtype=compute_dtype(cfg))

@@ -1,13 +1,17 @@
 """Serve a model: prefill a batch of prompts, then decode greedily.
 
-The port's counterpart of `examples/serve_lm.py`, at full width by default:
-`qwen2-1.5b` with bf16 compute and prefill attention through the CUDA flash
-kernel (`use_pallas=True`).  The weights are random, drawn from a seeded
-`torch.Generator` on the device; they are stored once in the compute dtype,
-which rounds exactly as the JAX package's per-use cast of f32 weights does.
+The port's counterpart of `examples/serve_lm.py`, at full width by default,
+with bf16 compute and prefill through the CUDA kernels (`use_pallas=True`):
+flash attention for qwen2-1.5b and recurrentgemma-9b's local layers, the
+selective scan for falcon-mamba-7b, the RG-LRU scan for recurrentgemma-9b.
+The weights are random, drawn from a seeded `torch.Generator` on the
+device; they are stored once in the compute dtype, which rounds exactly as
+the JAX package's per-use cast of f32 weights does (the few leaves that
+package reads in f32 stay f32).
 
-Run:  PYTHONPATH=src python -m repro_torch.serve [--arch qwen2-1.5b]
-          [--batch 4] [--prompt-len 2048] [--new-tokens 64] [--device cuda]
+Run:  PYTHONPATH=src python -m repro_torch.serve [--arch qwen2-1.5b |
+          falcon-mamba-7b | recurrentgemma-9b] [--batch 4] [--prompt-len 2048]
+          [--new-tokens 64] [--device cuda]
 """
 from __future__ import annotations
 
@@ -24,22 +28,36 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import compute_dtype
-from repro_torch.models.params import init_tree, tree_map
+from repro_torch.models.params import init_tree
 from repro_torch.train.steps import make_prefill_step, make_serve_step
+
+
+ATTN_CACHE_KEYS = ("k", "v", "pos")
 
 
 def grow_caches(caches, cur_len: int, total: int):
     """Pad the sequence dim (dim 2 of the stacked (reps, B, T, ...) caches)
-    from the prompt length to the full generation length; ring position
-    slots are padded with the invalid marker -1."""
+    of the attention caches (`k`, `v`, ring positions `pos`) from the prompt
+    length to the full generation length; ring position slots are padded
+    with the invalid marker -1.  A ring shorter than the prompt, and the
+    fixed-size recurrent states and conv tails, stay as they are, whatever
+    their widths."""
 
-    def grow(x):
-        if x.dim() >= 3 and x.shape[2] == cur_len:
-            pad = [0, 0] * (x.dim() - 3) + [0, total - cur_len]
-            return F.pad(x, pad, value=-1 if x.dtype == torch.int32 else 0)
-        return x
+    def grow(tree):
+        if isinstance(tree, dict):
+            return {k: pad(v) if k in ATTN_CACHE_KEYS else grow(v)
+                    for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(grow(t) for t in tree)
+        return tree
 
-    return tree_map(grow, caches)
+    def pad(x):
+        if x.shape[2] != cur_len:
+            return x
+        widths = [0, 0] * (x.dim() - 3) + [0, total - cur_len]
+        return F.pad(x, widths, value=-1 if x.dtype == torch.int32 else 0)
+
+    return grow(caches)
 
 
 def _sync(dev: torch.device):

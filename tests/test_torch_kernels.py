@@ -14,7 +14,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import check_kernel_inputs, flash_attention  # noqa: E402
 
 SHAPES = [  # tests/test_kernels.py:21-28
     (1, 1, 1, 128, 64),
@@ -78,8 +78,7 @@ def test_port_attention_matches_reference(jref, B, Hq, Hkv, S, D, causal,
     q, k, v = _torch(arrs, dtype)
     flash_attention.launches = 0
     got_plain = tref.ref_attention(q, k, v, causal=causal, window=window)
-    got_ops = tops.flash_attention(q, k, v, causal=causal, window=window,
-                                   block_q=64, block_k=64)
+    got_ops = tops.flash_attention(q, k, v, causal=causal, window=window)
     assert flash_attention.launches == 0  # CPU tensors never reach the kernel
     for got in (got_plain, got_ops):
         assert got.dtype == q.dtype and got.shape == q.shape
@@ -89,7 +88,7 @@ def test_port_attention_matches_reference(jref, B, Hq, Hkv, S, D, causal,
 
 
 @pytest.mark.parametrize("S,T,D", [(100, 100, 16), (37, 37, 32), (1000, 1000, 64),
-                                   (40, 150, 32)])
+                                   (40, 150, 32), (70, 70, 256)])
 @pytest.mark.parametrize("causal,window", MASKS)
 def test_ragged_lengths_match_reference_oracle(jref, S, T, D, causal, window):
     arrs = _inputs(1, 4, 2, S, D, seed=S, T=T)
@@ -108,8 +107,24 @@ def test_wrapper_rejects_bad_shapes_and_devices():
         tops.flash_attention(q, k, v)   # no fallback off the CPU
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_kernel_takes_head_dim_256(dtype):
+    """recurrentgemma-9b's local layers run at head_dim 256: the checks the
+    wrapper makes before a launch pass for it, in both dtypes, on the main
+    path's (B, S, H, D) views; a head_dim the kernel is not built for is
+    refused."""
+    def mk(h, d):
+        return torch.zeros((1, 40, h, d), dtype=getattr(torch, dtype)).transpose(1, 2)
+    q, k, v = mk(16, 256), mk(1, 256), mk(1, 256)
+    check_kernel_inputs(q, k, v, torch.empty_like(q))
+    q, k, v = mk(16, 48), mk(1, 48), mk(1, 48)
+    with pytest.raises(ValueError, match="head_dim"):
+        check_kernel_inputs(q, k, v, torch.empty_like(q))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,Hq,Hkv,S,D", SHAPES + [(2, 4, 2, 100, 16), (1, 12, 2, 300, 128)])
+@pytest.mark.parametrize("B,Hq,Hkv,S,D", SHAPES + [(2, 4, 2, 100, 16), (1, 12, 2, 300, 128),
+                                                 (2, 16, 1, 300, 256)])
 @pytest.mark.parametrize("causal,window", MASKS)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_cuda_kernel_matches_plain(cuda, B, Hq, Hkv, S, D, causal, window, dtype):
@@ -146,3 +161,18 @@ def test_cuda_kernel_reads_strided_views(cuda):
     np.testing.assert_array_equal(_np(got), _np(exp))
     plain = tref.ref_attention(qs, ks, vs, causal=True)
     np.testing.assert_allclose(_np(got), _np(plain), **_tol("bfloat16"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_kernel_head_dim_256_local_window(cuda, dtype):
+    """recurrentgemma-9b's local layers: MQA (16 q heads, 1 kv head), head_dim
+    256, window 2048, on the main path's strided views, past one window."""
+    q, k, v = _torch(_inputs(1, 16, 1, 2100, 256), dtype, cuda)
+    q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
+    flash_attention.launches = 0
+    got = tops.flash_attention(q, k, v, causal=True, window=2048)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == 1
+    exp = tref.ref_attention(q, k, v, causal=True, window=2048)
+    np.testing.assert_allclose(_np(got), _np(exp), **_tol(dtype))

@@ -47,18 +47,21 @@ def _close(got, exp, **tol):
 
 @pytest.mark.parametrize("smoke", [False, True])
 def test_configs_match_reference(smoke):
+    """Every ported arch, at full width and reduced."""
     get_j = jreg.smoke_config if smoke else jreg.get_config
     get_t = treg.smoke_config if smoke else treg.get_config
-    jc, tc = get_j(ARCH), get_t(ARCH)
-    assert dataclasses.asdict(jc) == dataclasses.asdict(tc)
-    assert (jc.head_dim, jc.vocab_padded, jc.n_layers) == \
-        (tc.head_dim, tc.vocab_padded, tc.n_layers)
-    assert jc.param_count() == tc.param_count()
+    assert treg.ARCH_NAMES == ["qwen2-1.5b", "falcon-mamba-7b", "recurrentgemma-9b"]
+    for arch in treg.ARCH_NAMES:
+        jc, tc = get_j(arch), get_t(arch)
+        assert dataclasses.asdict(jc) == dataclasses.asdict(tc), arch
+        assert (jc.head_dim, jc.vocab_padded, jc.n_layers) == \
+            (tc.head_dim, tc.vocab_padded, tc.n_layers)
+        assert jc.param_count() == tc.param_count(), arch
 
 
 def test_unported_arch_raises_and_names_roadmap():
     with pytest.raises(KeyError, match="ROADMAP.md"):
-        treg.get_config("falcon-mamba-7b")
+        treg.get_config("whisper-large-v3")
 
 
 def test_param_tree_layout_matches_reference():

@@ -26,7 +26,7 @@ from repro_torch import serve as tserve  # noqa: E402
 from repro_torch.configs import registry as treg  # noqa: E402
 from repro_torch.configs.base import LayerSpec  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
-from repro_torch.models.params import params_from_numpy, tree_leaves  # noqa: E402
+from repro_torch.models.params import is_desc, params_from_numpy, tree_leaves  # noqa: E402
 from repro_torch.train import steps as tsteps  # noqa: E402
 
 ARCH = "qwen2-1.5b"
@@ -67,13 +67,15 @@ def _close_trees(got, exp):
 
 
 def _grow_ref(caches, cur, total):
-    def grow(x):
-        if x.ndim >= 3 and x.shape[2] == cur:
+    """The reference's cache growth (examples/serve_lm.py::_grow), held to
+    the attention caches (`k`, `v`, `pos`) as the port's `grow_caches` is."""
+    def grow(path, x):
+        if path[-1].key in tserve.ATTN_CACHE_KEYS and x.shape[2] == cur:
             pad = [(0, 0)] * x.ndim
             pad[2] = (0, total - cur)
             return jnp.pad(x, pad, constant_values=-1 if x.dtype == jnp.int32 else 0)
         return x
-    return jax.tree_util.tree_map(grow, caches)
+    return jax.tree_util.tree_map_with_path(grow, caches)
 
 
 CASES = [(False, 0), (True, 0), (False, 16), (True, 16)]
@@ -161,19 +163,24 @@ def test_entry_points_need_a_card_unless_cpu_is_asked():
 
 
 def test_transformer_stores_drawn_weights_in_the_compute_dtype():
+    """Every weight in bf16 but the norm scales, which the reference reads
+    in f32 and which so stay f32."""
     _, tc = _cfgs(False)
     tc = dataclasses.replace(tc, compute_dtype="bfloat16")
     gen = torch.Generator()
     gen.manual_seed(0)
     model = TT.Transformer(tc, generator=gen, device="cpu")
-    assert {t.dtype for t in tree_leaves(model.params)} == {torch.bfloat16}
+    descs = tree_leaves(TT.build_descriptors(tc), is_leaf=is_desc)
+    got = [t.dtype for t in tree_leaves(model.params)]
+    assert got == [torch.float32 if d.f32 else torch.bfloat16 for d in descs]
+    assert sum(d.f32 for d in descs) == 3   # the group's attention and FFN norms, the final norm
     logits, _ = model.prefill(torch.from_numpy(np.zeros((B, 8), np.int64)))
     assert logits.shape == (B, 1, tc.vocab) and bool(torch.isfinite(logits).all())
 
 
 def test_unported_layer_kinds_raise():
     _, tc = _cfgs(False)
-    for spec in (LayerSpec(mixer="mamba"), LayerSpec(ffn="moe")):
+    for spec in (LayerSpec(mixer="mla"), LayerSpec(ffn="moe")):
         cfg = dataclasses.replace(tc, blocks=(((spec,), 1),))
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             TT.build_descriptors(cfg)
