@@ -16,7 +16,9 @@ its last line):
      against prefill in bf16 and in f32, each model freed before the next;
   5. time each kernel at its serving shape beside its bound, its plain
      version and, where one PyTorch call computes the same function, that
-     call;
+     call; for the kernels that take exponentials (flash attention, the
+     Mamba scan), the SFU's floor for them at the SM clock that nvidia-smi
+     reads while the kernel runs;
 then print the `kernels` line, the card's name and power limit, and
 {"ok": true, "device": {...}} as the last line.
 
@@ -26,6 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -38,6 +41,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 PEAK_BF16_FLOPS = 989e12    # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12      # H100 SXM f32 rate of the CUDA cores (no tensor cores)
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3 bandwidth
+SFU_EXP_PER_CLOCK = 16      # exponentials per clock per SM (CUDA guide, compute capability 9.0)
 BATCH, PROMPT, NEW = 4, 2048, 64
 ARCHS = ("qwen2-1.5b", "falcon-mamba-7b", "recurrentgemma-9b")
 KERNELS = ("flash_attention", "mamba_scan", "rglru_scan")
@@ -175,7 +179,8 @@ def phase_mamba_vs_plain(gen) -> float:
     from repro_torch.kernels.ops import mamba_scan
     from repro_torch.kernels.ref import ref_selective_scan
     shapes = [(1, 32, 64, 8), (2, 64, 128, 16), (1, 96, 64, 8),   # tests/test_kernels.py:105-109
-              (2, 100, 200, 16), (1, 33, 130, 8)]                   # ragged S and D
+              (2, 100, 200, 16), (1, 33, 130, 8),                   # ragged S and D
+              (2, 1, 3, 16), (1, 17, 70, 8)]                        # one step; D below a lane group
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         for B, S, D, N in shapes + [tuple(MAMBA_SHAPE.values())]:
@@ -354,6 +359,31 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def sm_clock_mhz(fn, est_ms, seconds=1.5) -> float:
+    """Median of the SM clock (MHz) that nvidia-smi samples every 50 ms
+    while `fn` runs back to back for about `seconds`."""
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm",
+                            "--format=csv,noheader,nounits", "-lms", "50"],
+                           stdout=subprocess.PIPE, text=True)
+    try:
+        for _ in range(max(1, int(seconds * 1e3 / est_ms))):
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        out, _ = smi.communicate()
+    samples = [float(x) for x in out.split()]
+    if not samples:
+        raise RuntimeError("nvidia-smi gave no SM clock")
+    return statistics.median(samples)
+
+
+def exp_floor_ms(n_exp, clock_mhz) -> float:
+    """Least time the SFUs take for `n_exp` exponentials at this SM clock."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return n_exp / (sms * SFU_EXP_PER_CLOCK * clock_mhz * 1e6) * 1e3
+
+
 def time_flash(gen, shape, window):
     import torch.nn.functional as F
     from repro_torch.kernels.ops import flash_attention
@@ -375,11 +405,15 @@ def time_flash(gen, shape, window):
     pairs = sum(min(r + 1, w) for r in range(s["S"]))          # unmasked (row, col) pairs
     flops = 4 * s["B"] * s["Hq"] * s["D"] * pairs               # QK^T and PV
     b_ms, by = bound(flops, nbytes(q, k, v, out), PEAK_BF16_FLOPS)
+    n_exp = s["B"] * s["Hq"] * pairs                            # one per unmasked score
+    clock = sm_clock_mhz(run, ms)
+    floor = exp_floor_ms(n_exp, clock)
     log("kernel_time", kernel="flash_attention", shape=list(s.values()), window=window,
         dtype="bfloat16", ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
-        bound_by=by, flops=flops, bytes=nbytes(q, k, v, out), max_abs_err=err)
+        bound_by=by, flops=flops, bytes=nbytes(q, k, v, out), exponentials=n_exp,
+        sm_clock_mhz=clock, exp_floor_ms=floor, max_abs_err=err)
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
-                bound_by=by, max_abs_err=err)
+                bound_by=by, exp_floor_ms=floor, max_abs_err=err)
 
 
 def time_mamba(gen):
@@ -389,18 +423,23 @@ def time_mamba(gen):
     u, dt, A, Bm, Cm = mamba_inputs(gen, *s.values(), torch.bfloat16, MAMBA_DT_RANK)
     y, h = mamba_scan(u, dt, A, Bm, Cm)
     err = (y.float() - ref_selective_scan(u, dt, A, Bm, Cm)[0]).abs().max().item()
-    ms = cuda_ms(lambda: mamba_scan(u, dt, A, Bm, Cm))
+    run = lambda: mamba_scan(u, dt, A, Bm, Cm)  # noqa: E731
+    ms = cuda_ms(run)
     plain_ms = cuda_ms(lambda: ref_selective_scan(u, dt, A, Bm, Cm), reps=2, warmup=1)
     n = s["B"] * s["S"] * s["D"]
     # per state element: dt*A, exp, dBu, the state update (2), y_t (2); per channel: dt*u
     flops = 7 * n * s["N"] + n
     moved = nbytes(u, dt, y, A, h) + 2 * s["B"] * s["S"] * s["N"] * Bm.element_size()
     b_ms, by = bound(flops, moved, PEAK_F32_FLOPS)
+    n_exp = n * s["N"]                                          # one per state element
+    clock = sm_clock_mhz(run, ms)
+    floor = exp_floor_ms(n_exp, clock)
     log("kernel_time", kernel="mamba_scan", shape=list(s.values()), dtype="bfloat16",
         b_row_stride=Bm.stride(1), ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
-        bound_by=by, flops=flops, bytes=moved, max_abs_err=err)
+        bound_by=by, flops=flops, bytes=moved, exponentials=n_exp, sm_clock_mhz=clock,
+        exp_floor_ms=floor, max_abs_err=err)
     return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=by,
-                max_abs_err=err)
+                exp_floor_ms=floor, max_abs_err=err)
 
 
 def time_rglru(gen):
@@ -450,11 +489,14 @@ def phase_kernel_time(gen, launches, worst_err) -> list:
     for name, kernel, arch in ENTRIES:
         t = timed[name]
         source, replaces = SOURCES[kernel]
-        out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                    "launches": launches[arch][kernel],
-                    "max_abs_err": max(t["max_abs_err"], worst_err[kernel]),
-                    "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                    "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+        entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                 "launches": launches[arch][kernel],
+                 "max_abs_err": max(t["max_abs_err"], worst_err[kernel]),
+                 "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                 "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+        if "exp_floor_ms" in t:         # the SFU's floor, beside the guide's bound
+            entry["exp_floor_ms"] = t["exp_floor_ms"]
+        out.append(entry)
     return out
 
 

@@ -39,8 +39,10 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
     """q: (B, Hq, S, D); k, v: (B, Hkv, T, D) -> (B, Hq, S, D) in q's dtype.
 
     The CUDA kernel tiles the sequence and masks the ragged edge, so any S
-    and T work.  The inputs may be strided views (the last dim contiguous),
-    e.g. (B, S, H, D) projections seen as (B, H, S, D).
+    and T work: bf16 runs on the tensor cores with the softmax in
+    registers, f32 on a scalar kernel (csrc/flash_attention.cu).  The
+    inputs may be strided views (the last dim contiguous), e.g. (B, S, H, D)
+    projections seen as (B, H, S, D).
     `flash_attention.launches` counts the kernel's launches.
     """
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:

@@ -37,10 +37,11 @@ def mamba_scan(u, dt, A, Bm, Cm, h0=None):
     """u, dt: (B, S, D); A: (D, N) f32; Bm, Cm: (B, S, N); h0: (B, D, N) f32
     or None (zeros) -> (y: (B, S, D) in u's dtype, h_final: (B, D, N) f32).
 
-    The CUDA kernel runs one thread per channel and masks the ragged edges,
-    so any S and D work.  u, dt, Bm and Cm may be strided views with a
-    contiguous last dim (on the main path Bm and Cm are slices of one
-    projection); they are read through their strides, never copied.
+    The CUDA kernel splits each channel's states across a group of lanes and
+    masks the ragged edges, so any S and D work.  u, dt, Bm and Cm may be
+    strided views with a contiguous last dim (on the main path Bm and Cm are
+    slices of one projection); they are read through their strides, never
+    copied.
     `mamba_scan.launches` counts the kernel's launches.
     """
     if u.dim() != 3 or dt.shape != u.shape or A.dim() != 2 or A.shape[0] != u.shape[2]:

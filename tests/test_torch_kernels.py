@@ -176,3 +176,81 @@ def test_cuda_kernel_head_dim_256_local_window(cuda, dtype):
     assert flash_attention.launches == 1
     exp = tref.ref_attention(q, k, v, causal=True, window=2048)
     np.testing.assert_allclose(_np(got), _np(exp), **_tol(dtype))
+
+
+def test_library_name_carries_source_and_flags(tmp_path, monkeypatch):
+    """A library is rebuilt when its source or the nvcc flags change."""
+    from repro_torch.kernels import build
+    same = build.library_path("mamba_scan")
+    assert same.parent == build.BUILD_DIR and same.name.startswith("mamba_scan-")
+    src = build.source("mamba_scan")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    (tmp_path / src.name).write_bytes(src.read_bytes())
+    assert build.library_path("mamba_scan") == same
+    (tmp_path / src.name).write_bytes(src.read_bytes() + b"\n")
+    assert build.library_path("mamba_scan") != same
+    monkeypatch.setattr(build, "CSRC", src.parent)
+    monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-lineinfo",))
+    assert build.library_path("mamba_scan") != same
+
+
+# ---------------------------------------------------------------------------
+# the bf16 kernel's tiling on the card: ring prologue and epilogue, ragged
+# edges, windows that start mid-tile, every head dim, the serving shape
+# ---------------------------------------------------------------------------
+
+def _check_cuda(cuda, B, Hq, Hkv, S, D, causal, window, dtype, T=None, strided=False):
+    q, k, v = _torch(_inputs(B, Hq, Hkv, S, D, seed=S + D, T=T), dtype, cuda)
+    if strided:   # the main path's (B, S, H, D) projections seen as (B, H, S, D)
+        q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
+    flash_attention.launches = 0
+    got = tops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == 1
+    exp = tref.ref_attention(q, k, v, causal=causal, window=window)
+    np.testing.assert_allclose(_np(got), _np(exp), **_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,S", [(64, 128), (64, 256), (64, 384),     # kv tiles of 128 rows
+                                 (256, 64), (256, 128), (256, 192)])  # of 64 rows at D 256
+@pytest.mark.parametrize("causal,window", MASKS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_kernel_one_two_three_kv_tiles(cuda, D, S, causal, window, dtype):
+    _check_cuda(cuda, 1, 4, 2, S, D, causal, window, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,T", [(129, 257), (300, 300), (77, 200), (250, 250)])
+@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("causal,window", MASKS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_kernel_lengths_off_the_tiles(cuda, S, T, D, causal, window, dtype):
+    _check_cuda(cuda, 2, 4, 2, S, D, causal, window, dtype, T=T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [40, 100, 129])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_kernel_window_starts_mid_tile(cuda, window, D, causal, dtype):
+    _check_cuda(cuda, 1, 4, 1, 333, D, causal, window, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("causal,window", MASKS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_kernel_every_head_dim(cuda, D, causal, window, dtype):
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    assert D in HEAD_DIMS
+    _check_cuda(cuda, 2, 4, 2, 200, D, causal, window, dtype, strided=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_kernel_qwen2_serving_shape(cuda, dtype):
+    """qwen2-1.5b's prefill: B 4, Hq 12, Hkv 2, S 2048, D 128, causal, on
+    the strided views the main path hands the kernel."""
+    _check_cuda(cuda, 4, 12, 2, 2048, 128, True, 0, dtype, strided=True)

@@ -211,6 +211,23 @@ def test_cuda_rglru_kernel_matches_plain(cuda, shape, dtype):
 def test_cuda_mamba_kernel_matches_plain(cuda, shape, dtype, strided):
     """`strided`: Bm and Cm are slices of one (B, S, 8 + 2N) projection, as
     on the main path."""
+    _check_cuda_mamba(cuda, shape, dtype, strided)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 1, 64, 16), (1, 1, 3, 8),     # one step
+                                   (1, 17, 3, 8), (2, 40, 1, 16),    # D below a lane group
+                                   (2, 50, 100, 16), (1, 31, 65, 8),  # D off the block's channels
+                                   (3, 16, 130, 16)])                 # S one chunk
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("strided", [False, True])
+def test_cuda_mamba_kernel_ragged_edges(cuda, shape, dtype, strided):
+    """The lane groups' edges: S = 1 and S off the 16-step chunk; D below
+    one group's lanes and off the block's channels; N 8 and 16."""
+    _check_cuda_mamba(cuda, shape, dtype, strided)
+
+
+def _check_cuda_mamba(cuda, shape, dtype, strided):
     u, dt, A, Bm, Cm = (_t(x, "float32", cuda) for x in _mamba_inputs(*shape))
     u, dt, Bm, Cm = (t.to(getattr(torch, dtype)) for t in (u, dt, Bm, Cm))
     if strided:
@@ -235,5 +252,21 @@ def test_cuda_mamba_kernel_state_carry(cuda):
     y1, h1 = tops.mamba_scan(u[:, :32], dt[:, :32], A, Bm[:, :32], Cm[:, :32])
     y2, h2 = tops.mamba_scan(u[:, 32:], dt[:, 32:], A, Bm[:, 32:], Cm[:, 32:], h0=h1)
     torch.cuda.synchronize()
+    np.testing.assert_allclose(_np(torch.cat([y1, y2], 1)), _np(y_full), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(_np(h2), _np(h_full), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [1, 17, 33])
+def test_cuda_mamba_kernel_state_carry_ragged(cuda, split):
+    """N = 8, D off the block's channels, splits off the chunk: the state
+    carried across two calls gives what one call gives."""
+    u, dt, A, Bm, Cm = (_t(x, "float32", cuda) for x in _mamba_inputs(2, 50, 70, 8, seed=4))
+    tops.mamba_scan.launches = 0
+    y_full, h_full = tops.mamba_scan(u, dt, A, Bm, Cm)
+    y1, h1 = tops.mamba_scan(u[:, :split], dt[:, :split], A, Bm[:, :split], Cm[:, :split])
+    y2, h2 = tops.mamba_scan(u[:, split:], dt[:, split:], A, Bm[:, split:], Cm[:, split:], h0=h1)
+    torch.cuda.synchronize()
+    assert tops.mamba_scan.launches == 3
     np.testing.assert_allclose(_np(torch.cat([y1, y2], 1)), _np(y_full), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(_np(h2), _np(h_full), rtol=1e-5, atol=1e-5)
