@@ -10,6 +10,16 @@ its last line):
   3. check each model on a small input: reduced qwen2-1.5b, falcon-mamba-7b
      and recurrentgemma-9b (2 repeats per layer group), the kernel path on
      the card against the plain path on the CPU;
+  3a. train_small: one f32 train step (2 microbatches) of each of those
+     reduced models on the card against the same step on the CPU, from the
+     same weights and batch: loss, grad_norm and params after the step;
+  3b. train: full-width qwen2-1.5b, bf16 compute on an f32 master copy,
+     sequence 4096, global batch 8 in 4 microbatches, 6 steps: one line per
+     step, then step ms, tokens/s, model-FLOPs share and peak memory; the
+     losses are finite and fall, the first step's bf16 loss is within 5e-2
+     of the same weights' and batch's f32 loss, peak memory is below 80 GB,
+     and no kernel is launched while training (the kernels are
+     forward-only; training runs the plain path);
   4. serve full-width qwen2-1.5b, falcon-mamba-7b and recurrentgemma-9b
      (bf16, the kernels in prefill): batch 4, 2048-token prompts, 64 new
      tokens; count each kernel's launches on each path; check decode
@@ -28,6 +38,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -257,6 +268,93 @@ def phase_small_model(arch, seed):
     if err > 1e-4 or not same:
         raise AssertionError(f"{arch}: the kernel path on the card disagrees with the "
                              f"plain path on the CPU")
+
+
+# ---------------------------------------------------------------------------
+# 3a/3b. training
+# ---------------------------------------------------------------------------
+
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, TRAIN_STEPS = 4096, 8, 4, 6
+
+
+def phase_train_small(arch, seed):
+    """One f32 train step of reduced `arch` (2 repeats per layer group, 2
+    microbatches) on the card and on the CPU, from the same weights and
+    batch; held to 1e-4, the CPU tests' f32 tolerance."""
+    from repro_torch import train as tr
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import make_train_step
+    cfg = registry.smoke_config(arch)
+    cfg = dataclasses.replace(cfg, blocks=tuple((p, 2) for p, _ in cfg.blocks))
+    params = tr.init_params(cfg, seed, "cpu")
+    batch = SyntheticLM(cfg, DataConfig(seed=seed, global_batch=4, seq_len=64)).global_batch(0)
+    hp = adamw.Hyper(warmup=2, total_steps=1, microbatches=2)
+    run = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(dev, copy=True), params)
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        p, _, m = make_train_step(cfg, hp)(p, adamw.init(p), b, 0)
+        run[dev] = (m["loss"].item(), m["grad_norm"].item(),
+                    [t.cpu() for t in tree_leaves(p)])
+    errs = {"loss": abs(run["cpu"][0] - run["cuda"][0]),
+            "grad_norm": abs(run["cpu"][1] - run["cuda"][1]),
+            "params": max((a - b).abs().max().item()
+                          for a, b in zip(run["cpu"][2], run["cuda"][2]))}
+    log("train_small", arch=arch, loss=run["cuda"][0], grad_norm=run["cuda"][1],
+        max_abs_err=errs, tol=1e-4)
+    if not all(math.isfinite(run[d][0]) for d in run) or max(errs.values()) > 1e-4:
+        raise AssertionError(f"{arch}: a train step on the card disagrees with the CPU")
+
+
+def f32_loss(cfg, params, batch):
+    """The loss of `batch` with f32 compute, microbatch by microbatch as the
+    train step takes it, without gradients."""
+    from repro_torch.models import transformer as T
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    micro = [{k: v.reshape(TRAIN_MICRO, -1, v.shape[1])[i] for k, v in batch.items()}
+             for i in range(TRAIN_MICRO)]
+    with torch.no_grad():
+        losses = [T.forward_train(f32, params, mb)[0] for mb in micro]
+    return torch.stack(losses).mean().item()
+
+
+def phase_train(seed):
+    """Full-width qwen2-1.5b trains for TRAIN_STEPS steps in bf16 compute
+    on an f32 master copy; returns the summary."""
+    from repro_torch import train as tr
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    cfg = dataclasses.replace(registry.get_config("qwen2-1.5b"), use_pallas=False)
+    params = tr.init_params(cfg, seed, "cuda")
+    first = SyntheticLM(cfg, DataConfig(seed=seed, global_batch=TRAIN_BATCH,
+                                        seq_len=TRAIN_SEQ)).global_batch(0)
+    loss_f32 = f32_loss(cfg, params, {k: torch.from_numpy(v).cuda() for k, v in first.items()})
+    res = tr.train(cfg, steps=TRAIN_STEPS, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH,
+                   microbatches=TRAIN_MICRO, seed=seed, device="cuda", params=params,
+                   log=lambda row: log("train_step", **row))
+    del params
+    torch.cuda.empty_cache()
+    losses = [r["loss"] for r in res["steps"]]
+    norms = [r["grad_norm"] for r in res["steps"]]
+    summary = {k: v for k, v in res.items() if k != "steps"}
+    log("train", arch=cfg.name, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH,
+        microbatches=TRAIN_MICRO, steps=TRAIN_STEPS, n_params=cfg.param_count(),
+        model_flops_per_step=tr.model_flops(cfg, TRAIN_BATCH, TRAIN_SEQ),
+        first_loss_bf16=losses[0], first_loss_f32=loss_f32, last_loss=losses[-1],
+        bf16_vs_f32_tol=5e-2, **summary)
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"non-finite loss or grad_norm: {losses}, {norms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    if abs(losses[0] - loss_f32) > 5e-2:
+        raise AssertionError(f"first-step loss in bf16 {losses[0]} is not within 5e-2 "
+                             f"of the f32 loss {loss_f32}")
+    if not summary["peak_mem_bytes"] < 80e9:
+        raise AssertionError(f"peak memory {summary['peak_mem_bytes']} bytes")
+    return summary
 
 
 # ---------------------------------------------------------------------------
@@ -516,6 +614,16 @@ def main():
              "rglru_scan": phase_rglru_vs_plain(gen)}
     for arch in ARCHS:
         phase_small_model(arch, seed)
+    ws = wrappers()
+    for w in ws.values():
+        w.launches = 0
+    for arch in ARCHS:
+        phase_train_small(arch, seed)
+    phase_train(seed)
+    train_launches = {name: w.launches for name, w in ws.items()}
+    log("train_launches", launches=train_launches)
+    if any(train_launches.values()):
+        raise AssertionError(f"a kernel was launched while training: {train_launches}")
     launches = {arch: phase_serve(arch, seed) for arch in ARCHS}
     kernels = phase_kernel_time(gen, launches, worst)
     log("done", seconds=time.perf_counter() - t0)

@@ -14,3 +14,9 @@ def resolve_device(device="cuda") -> torch.device:
         raise RuntimeError("no CUDA device is available; pass device='cpu' "
                            "to run on the CPU")
     return dev
+
+
+def synchronize(dev: torch.device):
+    """Wait for the device's queued work; a no-op on the CPU."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)

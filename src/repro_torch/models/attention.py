@@ -11,7 +11,9 @@ closely:
 
 With `cfg.use_pallas`, prefill goes through the hand-written flash kernel
 (`repro_torch.kernels.ops.flash_attention`) instead.  Decode stays plain:
-the reference has no decode kernel.  MLA, cross-attention and the
+the reference has no decode kernel.  Training runs the plain path under
+autograd: the kernel is forward-only, as the reference's is (it defines no
+VJP), so `use_pallas` in train mode raises.  MLA, cross-attention and the
 bidirectional (encoder) path come with their archs (ROADMAP.md).  The JAX
 package's sharding annotations (`constrain`) have no counterpart on one card.
 """
@@ -164,6 +166,11 @@ def _project_qkv(cfg: ModelConfig, p, x):
     if cfg.qk_norm:
         q = L.rms_head_norm(p["q_norm"], q)
         k = L.rms_head_norm(p["k_norm"], k)
+    if cfg.cotangent_dtype:
+        # the f32 score products would otherwise push f32 cotangents back
+        # through the projections
+        dt = getattr(torch, cfg.cotangent_dtype)
+        q, k, v = (L.cotangent_cast(t, dt) for t in (q, k, v))
     return q, k, v
 
 
@@ -177,14 +184,17 @@ def apply_attn(cfg: ModelConfig, p, x, *, window: int, causal: bool = True,
                mode: str = "train", cache=None, pos_t=None):
     """Returns (out, new_cache).
 
-    Decode writes the new token's k and v into `cache` in place (the JAX
-    package returns an updated copy) and returns the same dict.
+    Train mode is prefill without a cache (`new_cache` is None).  Decode
+    writes the new token's k and v into `cache` in place (the JAX package
+    returns an updated copy) and returns the same dict.
     """
     B, S, _ = x.shape
     scale = 1.0 / math.sqrt(cfg.head_dim)
     h = L.apply_norm(cfg, p["norm"], x)
 
-    if mode == "prefill":
+    if mode in ("train", "prefill"):
+        if mode == "train" and cfg.use_pallas:
+            raise NotImplementedError(L.FORWARD_ONLY.format(kernel="flash attention"))
         q, k, v = _project_qkv(cfg, p, h)
         pos = torch.arange(S, device=x.device)[None]
         if cfg.pos_embed == "rope":
@@ -207,6 +217,8 @@ def apply_attn(cfg: ModelConfig, p, x, *, window: int, causal: bool = True,
                 o = causal_attention(q, ke, ve, scale=scale,
                                      kv_block=cfg.attn_kv_block)
         out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(o.dtype))
+        if mode == "train":
+            return x + out, None
         if window > 0:
             W = min(window, S)
             pos_c = torch.arange(S - W, S, device=x.device, dtype=torch.int32)
@@ -216,9 +228,6 @@ def apply_attn(cfg: ModelConfig, p, x, *, window: int, causal: bool = True,
             new_cache = {"k": k, "v": v}
         return x + out, new_cache
 
-    if mode != "decode":
-        raise NotImplementedError(f"mode {mode!r}: training is ported in a "
-                                  f"later slice (ROADMAP.md, Queue 1)")
     # ---- decode: S == 1 ----
     if cache is None:
         raise ValueError("decode needs a cache")

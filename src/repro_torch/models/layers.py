@@ -1,4 +1,5 @@
-"""Shared model primitives: norms, FFN, embeddings, rotary positions.
+"""Shared model primitives: norms, FFN, embeddings, rotary positions, and
+the cotangent dtype barrier of training.
 
 M-RoPE (qwen2-vl) and sinusoidal positions (whisper) come with their archs
 (ROADMAP.md).
@@ -14,8 +15,33 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.params import ParamDesc
 
 
+# what a mixer with `use_pallas` says in train mode
+FORWARD_ONLY = ("{kernel}: the kernel is forward-only (the reference defines no "
+                "VJP for its Pallas kernel), so training runs the plain path; "
+                "set use_pallas=False to train")
+
+
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.compute_dtype)
+
+
+class _CotangentCast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dtype):
+        ctx.dtype = dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct.to(ctx.dtype), None
+
+
+def cotangent_cast(x, dtype: torch.dtype):
+    """Identity whose cotangent is cast to `dtype`: a dtype barrier that
+    stops the f32 CE-loss cotangent from propagating f32 activation grads
+    through the whole stack.  (Autograd casts a gradient back to its
+    input's dtype, so on an f32 `x` this rounds the cotangent to `dtype`.)"""
+    return _CotangentCast.apply(x, dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -80,8 +80,10 @@ def rglru_scan(u, a_gate, x_gate, a_param, *, c: float, chunk: int, h0=None):
 def apply_rglru(cfg: ModelConfig, p, x, *, mode="prefill", cache=None, pos_t=None):
     """Returns (out, new_cache).
 
-    Decode writes the new state and conv tail into `cache` in place (the JAX
-    package returns an updated copy) and returns the same dict.
+    Train mode is prefill without a cache (`new_cache` is None), through the
+    plain chunked scan under autograd.  Decode writes the new state and conv
+    tail into `cache` in place (the JAX package returns an updated copy) and
+    returns the same dict.
     """
     r = cfg.rglru
     cdt = L.compute_dtype(cfg)
@@ -89,7 +91,9 @@ def apply_rglru(cfg: ModelConfig, p, x, *, mode="prefill", cache=None, pos_t=Non
     gate = F.gelu(torch.einsum("bsd,dw->bsw", h, p["in_gate"].to(cdt)), approximate="tanh")
     u = torch.einsum("bsd,dw->bsw", h, p["in_x"].to(cdt))
 
-    if mode == "prefill":
+    if mode in ("train", "prefill"):
+        if mode == "train" and cfg.use_pallas:
+            raise NotImplementedError(L.FORWARD_ONLY.format(kernel="the RG-LRU scan"))
         uc, tail = causal_conv(u, p["conv_w"].to(cdt), p["conv_b"].to(cdt))
         a_gate = torch.einsum("bsw,wv->bsv", uc, p["gate_a"].to(cdt))
         x_gate = torch.einsum("bsw,wv->bsv", uc, p["gate_x"].to(cdt))
@@ -101,11 +105,8 @@ def apply_rglru(cfg: ModelConfig, p, x, *, mode="prefill", cache=None, pos_t=Non
         else:
             y, h_fin = rglru_scan(uc, a_gate, x_gate, p["a_param"], c=r.c, chunk=r.chunk)
         out = torch.einsum("bsw,wd->bsd", y.to(cdt) * gate, p["out_proj"].to(cdt))
-        return x + out, {"state": h_fin, "conv": tail}
+        return x + out, (None if mode == "train" else {"state": h_fin, "conv": tail})
 
-    if mode != "decode":
-        raise NotImplementedError(f"mode {mode!r}: training is ported in a "
-                                  f"later slice (ROADMAP.md, Queue 1)")
     if cache is None:
         raise ValueError("decode needs a cache")
     uc, window = conv_step(cache["conv"], u, p["conv_w"].to(cdt), p["conv_b"].to(cdt))

@@ -131,8 +131,10 @@ def _gates(cfg: ModelConfig, p, xc):
 def apply_mamba(cfg: ModelConfig, p, x, *, mode="prefill", cache=None, pos_t=None):
     """Returns (out, new_cache).
 
-    Decode writes the new state and conv tail into `cache` in place (the JAX
-    package returns an updated copy) and returns the same dict.
+    Train mode is prefill without a cache (`new_cache` is None), through the
+    plain chunked scan under autograd.  Decode writes the new state and conv
+    tail into `cache` in place (the JAX package returns an updated copy) and
+    returns the same dict.
     """
     s = cfg.ssm
     cdt = L.compute_dtype(cfg)
@@ -142,7 +144,9 @@ def apply_mamba(cfg: ModelConfig, p, x, *, mode="prefill", cache=None, pos_t=Non
     xin, z = xz[..., :din], xz[..., din:]
     A = -torch.exp(p["A_log"].float())
 
-    if mode == "prefill":
+    if mode in ("train", "prefill"):
+        if mode == "train" and cfg.use_pallas:
+            raise NotImplementedError(L.FORWARD_ONLY.format(kernel="the selective scan"))
         xc, tail = causal_conv(xin, p["conv_w"].to(cdt), p["conv_b"].to(cdt))
         xc = F.silu(xc)
         dt, Bm, Cm = _gates(cfg, p, xc)
@@ -153,11 +157,8 @@ def apply_mamba(cfg: ModelConfig, p, x, *, mode="prefill", cache=None, pos_t=Non
             y, h_fin = selective_scan(xc, dt, A, Bm, Cm, chunk=s.chunk)
         y = y.to(cdt) + xc * p["D"].to(cdt)
         out = torch.einsum("bsd,de->bse", y * F.silu(z), p["out_proj"].to(cdt))
-        return x + out, {"state": h_fin, "conv": tail}
+        return x + out, (None if mode == "train" else {"state": h_fin, "conv": tail})
 
-    if mode != "decode":
-        raise NotImplementedError(f"mode {mode!r}: training is ported in a "
-                                  f"later slice (ROADMAP.md, Queue 1)")
     if cache is None:
         raise ValueError("decode needs a cache")
     xc, window = conv_step(cache["conv"], xin, p["conv_w"].to(cdt), p["conv_b"].to(cdt))

@@ -1,20 +1,24 @@
-"""Model assembly: layer groups, prefill and decode entry points.
+"""Model assembly: layer groups, train, prefill and decode entry points.
 
 The layer stack is a sequence of (pattern, repeats) groups (see
 `ModelConfig.blocks`).  Each group's parameters are stacked along a leading
 `reps` dim, as in the JAX package; where that package `lax.scan`s a group,
 the port runs a Python loop over `reps` and slices the stacked parameters.
+In training each repetition's body is checkpointed by `cfg.remat`, as the
+reference `jax.checkpoint`s its scanned body, and the loss is a
+sequence-chunked cross-entropy whose chunks are checkpointed too.
 
 The `attn`, `mamba` and `rglru` mixers with the `dense` FFN or none are
 ported; the other layer kinds raise and name their ROADMAP.md item.
-Training (`forward_train`, `chunked_ce_loss`) comes in a later slice.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import resolve_device
@@ -95,7 +99,7 @@ def build_cache_descriptors(cfg: ModelConfig, batch: int, seq: int):
 # ---------------------------------------------------------------------------
 
 def apply_layer(cfg: ModelConfig, spec: LayerSpec, p, x, *, mode, cache, pos_t):
-    """-> (x, new_cache)."""
+    """-> (x, new_cache); new_cache is None in train mode."""
     _check_ported(cfg, spec)
     c_mix = cache.get("mixer") if cache else None
     if spec.mixer == "mamba":
@@ -107,6 +111,12 @@ def apply_layer(cfg: ModelConfig, spec: LayerSpec, p, x, *, mode, cache, pos_t):
                              causal=spec.causal, mode=mode, cache=c_mix, pos_t=pos_t)
     if spec.ffn == "dense":
         x = L.apply_ffn(cfg, p["ffn"], x)
+    if mode == "train":
+        if cfg.cotangent_dtype:
+            # pin the residual stream's cotangent dtype at every layer
+            # boundary, as the reference does
+            x = L.cotangent_cast(x, getattr(torch, cfg.cotangent_dtype))
+        return x, None
     return x, {"mixer": nc}
 
 
@@ -114,19 +124,54 @@ def _index(tree, r: int):
     return tree_map(lambda t: t[r], tree)
 
 
+def _unstack(tree, reps: int) -> list:
+    """One tree of views per repetition.  Under autograd the gradients of
+    the `reps` slices meet once, in one stack into the stacked leaf."""
+    sliced = tree_map(lambda t: t.unbind(0), tree)
+    return [tree_map(lambda ts: ts[r], sliced, is_leaf=lambda t: isinstance(t, tuple))
+            for r in range(reps)]
+
+
+def _save_2d_products(ctx, op, *args, **kwargs):
+    """Save the outputs of matrix products with no batch dims: `mm`, and the
+    batch-1 `bmm` that `torch.einsum` makes of a projection."""
+    if (op is torch.ops.aten.mm.default
+            or (op is torch.ops.aten.bmm.default and args[0].shape[0] == 1)):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: ModelConfig, fn):
+    """`fn` checkpointed by `cfg.remat`: "none" saves everything;
+    "nothing_saveable" saves only the inputs and recomputes the body in the
+    backward; "dots_with_no_batch_dims" also saves the outputs of the 2-D
+    matrix products (the projections), as the reference's JAX policy of that
+    name does, and recomputes the rest (norms, casts, attention scores)."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "nothing_saveable":
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+    if cfg.remat == "dots_with_no_batch_dims":
+        ctx = functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                _save_2d_products)
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False,
+                                 context_fn=ctx)
+    raise ValueError(f"unknown remat policy {cfg.remat!r}")
+
+
 def run_blocks(cfg: ModelConfig, blocks_params, x, *, mode, caches=None,
                pos_t=None):
     """Run all (pattern, repeats) groups.  Returns (x, new_caches).
 
-    Prefill returns each group's caches stacked along a leading `reps` dim,
-    as the JAX package's scan does.  Decode writes into `caches` in place
-    (each layer's cache is a view of its group's stacked tensor; attention
-    writes its new k and v, the recurrent mixers their new state and conv
-    tail) and returns them.
+    Train mode runs each repetition's body under `_remat` and returns no
+    caches (a None per group).  Prefill returns each group's caches stacked
+    along a leading `reps` dim, as the JAX package's scan does.  Decode
+    writes into `caches` in place (each layer's cache is a view of its
+    group's stacked tensor; attention writes its new k and v, the recurrent
+    mixers their new state and conv tail) and returns them.
     """
-    if mode not in ("prefill", "decode"):
-        raise NotImplementedError(f"mode {mode!r}: training is ported in a "
-                                  f"later slice (ROADMAP.md, Queue 1)")
+    if mode == "train":
+        return _run_blocks_train(cfg, blocks_params, x), [None] * len(cfg.blocks)
     new_caches = []
     for gi, (pattern, reps) in enumerate(cfg.blocks):
         per_rep = []
@@ -146,6 +191,27 @@ def run_blocks(cfg: ModelConfig, blocks_params, x, *, mode, caches=None,
     return x, new_caches
 
 
+def _run_blocks_train(cfg: ModelConfig, blocks_params, x):
+    cdt = L.compute_dtype(cfg)
+    for gi, (pattern, reps) in enumerate(cfg.blocks):
+        gp = blocks_params[gi]
+        if cfg.bf16_param_stack:
+            # one cast of the group's floating params per step: the layers
+            # read, and their gradients flow through, the compute dtype
+            gp = tree_map(lambda t: t.to(cdt) if t.is_floating_point() else t, gp)
+
+        def body(x, p_r, _pattern=pattern):
+            for i, spec in enumerate(_pattern):
+                x, _ = apply_layer(cfg, spec, p_r[f"l{i}"], x, mode="train",
+                                   cache=None, pos_t=None)
+            return x
+
+        body = _remat(cfg, body)
+        for p_r in _unstack(gp, reps):
+            x = body(x, p_r)
+    return x
+
+
 # ---------------------------------------------------------------------------
 # entry points
 # ---------------------------------------------------------------------------
@@ -163,6 +229,52 @@ def _logits(cfg: ModelConfig, params, x):
     table = L.unembed_table(cfg, params).to(x.dtype)
     logits = torch.matmul(x.float(), table.float().t())
     return logits[:, :, :cfg.vocab]
+
+
+def chunked_ce_loss(cfg: ModelConfig, params, x, labels):
+    """Mean token cross-entropy over a sequence cut in chunks of
+    `cfg.loss_chunk` (shrunk until it divides S).  Each chunk is
+    checkpointed, so only one chunk's logits are ever resident: f32 logits
+    from the table cast to the compute dtype (both operands then widened to
+    f32, which is the reference's bf16 product with an f32 result), the
+    padded vocab masked to -1e30, and the label's log-prob by gather (the
+    reference's one-hot sum picks the same number).  The sum over chunks is
+    divided by B x S."""
+    B, S, _ = x.shape
+    table = L.unembed_table(cfg, params)
+    V, Vp = cfg.vocab, cfg.vocab_padded
+    ch = min(cfg.loss_chunk, S)
+    while S % ch:
+        ch -= 1
+
+    def chunk_fn(x_c, y_c):
+        logits = torch.matmul(x_c.float(), table.to(x_c.dtype).float().t())
+        if Vp > V:
+            logits = torch.where(torch.arange(Vp, device=x.device) < V, logits,
+                                 A.NEG_INF)
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, y_c[..., None].long())[..., 0]
+        return (lse - ll).sum()
+
+    total = torch.zeros((), device=x.device)
+    for c0 in range(0, S, ch):
+        total = total + ckpt.checkpoint(chunk_fn, x[:, c0:c0 + ch],
+                                        labels[:, c0:c0 + ch], use_reentrant=False)
+    return total / (B * S)
+
+
+def forward_train(cfg: ModelConfig, params, batch):
+    """batch: {"tokens", "labels"}, (B, S) integer tensors -> (loss,
+    {"ce", "aux"}).  `aux` (the MoE balance loss) is 0 until MoE is
+    ported."""
+    x = embed_tokens(cfg, params, batch["tokens"])
+    x, _ = run_blocks(cfg, params["blocks"], x, mode="train")
+    x = L.apply_norm(cfg, params["final_norm"], x)
+    if cfg.cotangent_dtype:
+        x = L.cotangent_cast(x, getattr(torch, cfg.cotangent_dtype))
+    ce = chunked_ce_loss(cfg, params, x, batch["labels"])
+    aux = torch.zeros((), device=x.device)
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 def prefill(cfg: ModelConfig, params, tokens):

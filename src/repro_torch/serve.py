@@ -25,7 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs import registry
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, synchronize
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import compute_dtype
 from repro_torch.models.params import init_tree
@@ -60,11 +60,6 @@ def grow_caches(caches, cur_len: int, total: int):
     return grow(caches)
 
 
-def _sync(dev: torch.device):
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
-
 def serve(cfg: ModelConfig, *, batch: int, prompt_len: int, new_tokens: int,
           device="cuda", params=None, prompts=None) -> dict:
     """Prefill `batch` prompts of `prompt_len` tokens, decode `new_tokens`.
@@ -85,12 +80,12 @@ def serve(cfg: ModelConfig, *, batch: int, prompt_len: int, new_tokens: int,
         torch.cuda.reset_peak_memory_stats(dev)
     total = prompt_len + new_tokens
 
-    _sync(dev)
+    synchronize(dev)
     t0 = time.perf_counter()
     logits, caches = make_prefill_step(cfg)(params, {"tokens": prompts})
     caches = grow_caches(caches, prompt_len, total)
     tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
-    _sync(dev)
+    synchronize(dev)
     t_prefill = time.perf_counter() - t0
 
     step = make_serve_step(cfg)
@@ -99,7 +94,7 @@ def serve(cfg: ModelConfig, *, batch: int, prompt_len: int, new_tokens: int,
     for i in range(new_tokens - 1):
         tok, caches = step(params, caches, tok, prompt_len + i)
         out.append(tok)
-    _sync(dev)
+    synchronize(dev)
     t_decode = time.perf_counter() - t0
     steps = max(1, new_tokens - 1)
     return {

@@ -1,13 +1,69 @@
-"""Prefill and greedy serve steps (built per config).
-
-`make_train_step` comes with the training slice (ROADMAP.md, Queue 1).
-"""
+"""Train, prefill and greedy serve steps (built per config)."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as T
+from repro_torch.models.params import tree_leaves, tree_map
+from repro_torch.optim import adamw
+
+
+def make_train_step(cfg: ModelConfig, hp: adamw.Hyper):
+    """Returns train_step(params, opt_state, batch, step) -> (params,
+    opt_state, metrics), with `params` and `opt_state` updated in place.
+
+    batch: {"tokens", "labels"}, (B, S) integer tensors on the params'
+    device; step: int.  With hp.microbatches > 1 the batch is split along
+    dim 0 into that many microbatches, run one after the other; their f32
+    gradients and losses are summed and divided by the count, and their
+    metrics averaged.  Then the gradients are clipped to hp.clip in global
+    norm and AdamW is applied.  metrics: loss, ce, aux, grad_norm, lr (0-dim
+    tensors).  The reference's `grad_shardings` (a layout for the gradient
+    reductions across a mesh) has no counterpart on one card.
+    """
+
+    def grad_fn(params, batch):
+        # detached views of the leaves (no copy) that autograd tracks, so
+        # the caller's tensors are left as they are
+        tracked = tree_map(lambda t: t.detach().requires_grad_(), params)
+        leaves = tree_leaves(tracked)
+        loss, metrics = T.forward_train(cfg, tracked, batch)
+        grads = torch.autograd.grad(loss, leaves)
+        by_leaf = {id(p): g for p, g in zip(tree_leaves(params), grads)}
+        return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+                tree_map(lambda p: by_leaf[id(p)], params))
+
+    def train_step(params, opt_state, batch, step):
+        if hp.microbatches > 1:
+            mb = hp.microbatches
+
+            def split(x):
+                return x.reshape((mb, x.shape[0] // mb) + x.shape[1:])
+
+            batches = tree_map(split, batch)
+            grads = tree_map(lambda p: torch.zeros(p.shape, device=p.device), params)
+            loss_sum = torch.zeros((), device=batch["tokens"].device)
+            ms = []
+            for i in range(mb):
+                loss_i, m_i, g_i = grad_fn(params, tree_map(lambda x: x[i], batches))
+                tree_map(lambda a, g: a.add_(g.float()), grads, g_i)
+                loss_sum = loss_sum + loss_i
+                ms.append(m_i)
+                del g_i     # free this microbatch's gradients before the next backward
+            grads = tree_map(lambda g: g.div_(mb), grads)
+            loss = loss_sum / mb
+            metrics = {k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
+        else:
+            loss, metrics, grads = grad_fn(params, batch)
+
+        grads, gnorm = adamw.clip_by_global_norm(grads, hp.clip)
+        params, opt_state = adamw.update(grads, opt_state, params, step, hp)
+        metrics = dict(metrics)
+        metrics.update(loss=loss, grad_norm=gnorm, lr=adamw.schedule(hp, step))
+        return params, opt_state, metrics
+
+    return train_step
 
 
 def make_prefill_step(cfg: ModelConfig):
