@@ -115,8 +115,26 @@ class ModelConfig:
     def n_layers(self) -> int:
         return sum(len(p) * r for p, r in self.blocks)
 
+    def layer_specs(self) -> list[LayerSpec]:
+        out: list[LayerSpec] = []
+        for pattern, r in self.blocks:
+            out.extend(list(pattern) * r)
+        return out
+
     def param_count(self) -> int:
         """Parameter count from the descriptor tree."""
         from repro_torch.models.params import count_params
         from repro_torch.models.transformer import build_descriptors
         return count_params(build_descriptors(self))
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: top_k + shared experts only)."""
+        total = self.param_count()
+        if self.moe is None:
+            return total
+        m = self.moe
+        d = self.d_model
+        per_expert = 3 * d * m.expert_ff if self.gated_ffn else 2 * d * m.expert_ff
+        n_moe_layers = sum(1 for s in self.layer_specs() if s.ffn == "moe")
+        inactive = n_moe_layers * (m.n_experts - m.top_k) * per_expert
+        return total - inactive

@@ -10,12 +10,15 @@ import importlib
 
 from repro_torch.configs.base import ModelConfig
 
-ARCH_NAMES = ["qwen2-1.5b", "falcon-mamba-7b", "recurrentgemma-9b"]
+ARCH_NAMES = ["qwen2-1.5b", "falcon-mamba-7b", "recurrentgemma-9b",
+              "granite-moe-3b-a800m", "deepseek-v2-236b"]
 
 _MODULES = {
     "qwen2-1.5b": "qwen2_1_5b",
     "falcon-mamba-7b": "falcon_mamba_7b",
     "recurrentgemma-9b": "recurrentgemma_9b",
+    "granite-moe-3b-a800m": "granite_moe_3b",
+    "deepseek-v2-236b": "deepseek_v2_236b",
 }
 
 
@@ -25,6 +28,15 @@ def get_config(name: str) -> ModelConfig:
                        f"ROADMAP.md lists the order in which the others come")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
     return mod.CONFIG
+
+
+def cut_depth(cfg: ModelConfig, max_repeats: int) -> ModelConfig:
+    """`cfg` with every layer group's repeats capped at `max_repeats`;
+    every width stays (deepseek-v2-236b at 4: 1 dense + 4 MoE layers)."""
+    if max_repeats < 1:
+        raise ValueError(f"max_repeats must be at least 1; got {max_repeats}")
+    return dataclasses.replace(
+        cfg, blocks=tuple((p, min(r, max_repeats)) for p, r in cfg.blocks))
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:

@@ -20,3 +20,10 @@ def synchronize(dev: torch.device):
     """Wait for the device's queued work; a no-op on the CPU."""
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def device_memory(dev: torch.device) -> int | None:
+    """The card's memory in bytes; None for the CPU (not checked)."""
+    if dev.type == "cuda":
+        return torch.cuda.get_device_properties(dev).total_memory
+    return None

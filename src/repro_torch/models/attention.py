@@ -1,21 +1,28 @@
-"""Attention: blocked causal, banded local-window and decode, for GQA layers.
+"""Attention: blocked causal, banded local-window and decode, for GQA layers,
+and DeepSeek-V2's multi-head latent attention (MLA).
 
 Plain PyTorch versions of the JAX package's memory-bounded attention
 (`repro/models/attention.py`), with the same blocking so that the two agree
 closely:
 
 * causal attention: "super-row" decomposition, online softmax over kv
-  blocks inside each row band;
+  blocks inside each row band (q/k and v may differ in width, as MLA's do);
 * local (windowed) attention: per q block, a (window + q_block) kv slice;
-* decode: one query against the cache (global) or the ring buffer (local).
+* decode: one query against the cache (global) or the ring buffer (local);
+* MLA: low-rank q and kv with RMS-normed latents; prefill expands the
+  latent kv per head and runs the causal attention above; decode absorbs
+  W_k into the query and attends over the latent cache (`c_kv`, `k_rope`).
 
-With `cfg.use_pallas`, prefill goes through the hand-written flash kernel
-(`repro_torch.kernels.ops.flash_attention`) instead.  Decode stays plain:
-the reference has no decode kernel.  Training runs the plain path under
-autograd: the kernel is forward-only, as the reference's is (it defines no
-VJP), so `use_pallas` in train mode raises.  MLA, cross-attention and the
-bidirectional (encoder) path come with their archs (ROADMAP.md).  The JAX
-package's sharding annotations (`constrain`) have no counterpart on one card.
+With `cfg.use_pallas`, GQA prefill goes through the hand-written flash
+kernel (`repro_torch.kernels.ops.flash_attention`) instead.  Decode stays
+plain: the reference has no decode kernel.  Training runs the plain path
+under autograd: the kernel is forward-only, as the reference's is (it
+defines no VJP), so `use_pallas` in a GQA layer's train mode raises.  MLA
+never reaches the kernel, in any mode, as in the reference (its q/k and v
+widths differ), so `use_pallas` changes nothing there.  Cross-attention
+and the bidirectional (encoder) path come with their archs (ROADMAP.md).
+The JAX package's sharding annotations (`constrain`) have no counterpart
+on one card.
 """
 from __future__ import annotations
 
@@ -252,4 +259,102 @@ def apply_attn(cfg: ModelConfig, p, x, *, window: int, causal: bool = True,
     ke, ve = _expand_kv(cfg, cache["k"]), _expand_kv(cfg, cache["v"])
     o = decode_attention(q, ke, ve, mask, scale)
     out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(o.dtype))
+    return x + out, cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+def mla_descs(cfg: ModelConfig):
+    d, H = cfg.d_model, cfg.n_heads
+    ql, kl = cfg.mla_q_lora, cfg.mla_kv_lora
+    dn, dr, dv = cfg.mla_nope_dim, cfg.mla_rope_dim, cfg.mla_v_dim
+    return {
+        "norm": L.norm_descs(cfg),
+        "wq_a": ParamDesc((d, ql), ("embed", "lora")),
+        "q_norm": ParamDesc((ql,), ("lora",), init="ones"),
+        "wq_b": ParamDesc((ql, H, dn + dr), ("lora", "heads", "head_dim")),
+        "wkv_a": ParamDesc((d, kl + dr), ("embed", "lora")),
+        "kv_norm": ParamDesc((kl,), ("lora",), init="ones"),
+        "wk_b": ParamDesc((kl, H, dn), ("lora", "heads", "head_dim")),
+        "wv_b": ParamDesc((kl, H, dv), ("lora", "heads", "head_dim")),
+        "wo": ParamDesc((H, dv, d), ("heads", "head_dim", "embed")),
+    }
+
+
+def mla_cache_descs(cfg: ModelConfig, batch: int, seq: int):
+    cdt = L.compute_dtype(cfg)
+    return {
+        "c_kv": ParamDesc((batch, seq, cfg.mla_kv_lora), ("batch", "kv_seq", None), dtype=cdt),
+        "k_rope": ParamDesc((batch, seq, cfg.mla_rope_dim), ("batch", "kv_seq", None), dtype=cdt),
+    }
+
+
+def _rms_latent(x, scale):
+    """The latents' RMS norm: the reciprocal RMS in f32, cast, then two
+    products in x's dtype, in the reference's order."""
+    r = torch.rsqrt(x.float().square().mean(dim=-1, keepdim=True) + 1e-6)
+    return x * r.to(x.dtype) * scale.to(x.dtype)
+
+
+def _mla_common(cfg: ModelConfig, p, h, positions):
+    cdt = L.compute_dtype(cfg)
+    dn, kl = cfg.mla_nope_dim, cfg.mla_kv_lora
+    cq = _rms_latent(torch.matmul(h, p["wq_a"].to(cdt)), p["q_norm"])
+    qf = torch.einsum("bsl,lhk->bshk", cq, p["wq_b"].to(cdt))
+    q_nope, q_rope = qf[..., :dn], L.apply_rope(cfg, qf[..., dn:], positions)
+    ckv_f = torch.matmul(h, p["wkv_a"].to(cdt))
+    c_kv = _rms_latent(ckv_f[..., :kl], p["kv_norm"])
+    k_rope = L.apply_rope(cfg, ckv_f[:, :, None, kl:], positions)[:, :, 0]
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def apply_mla(cfg: ModelConfig, p, x, *, mode="train", cache=None, pos_t=None):
+    """Returns (out, new_cache).
+
+    Train and prefill expand the latent kv through `wk_b` / `wv_b`, append
+    the shared rope key to every head, and run `causal_attention` with q/k
+    of width nope + rope and v of width v_dim, scaled by 1/sqrt(nope +
+    rope).  Prefill returns the latent cache {"c_kv", "k_rope"}.  Decode
+    (S == 1) writes the new latent row into `cache` in place and attends
+    with W_k absorbed into the query: scores over `c_kv` plus the rope
+    scores, both f32 products, masked to positions <= pos_t; the weighted
+    latent is cast to the compute dtype, then `wv_b` and `wo`.
+    """
+    cdt = L.compute_dtype(cfg)
+    B, S, _ = x.shape
+    dn, dr = cfg.mla_nope_dim, cfg.mla_rope_dim
+    scale = 1.0 / math.sqrt(dn + dr)
+    h = L.apply_norm(cfg, p["norm"], x)
+
+    if mode in ("train", "prefill"):
+        pos = torch.arange(S, device=x.device)[None]
+        q_nope, q_rope, c_kv, k_rope = _mla_common(cfg, p, h, pos)
+        k_nope = torch.einsum("bsl,lhk->bshk", c_kv, p["wk_b"].to(cdt))
+        v = torch.einsum("bsl,lhk->bshk", c_kv, p["wv_b"].to(cdt))
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, cfg.n_heads, dr)], dim=-1)
+        o = causal_attention(q, k, v, scale=scale, kv_block=cfg.attn_kv_block)
+        out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(o.dtype))
+        new_cache = {"c_kv": c_kv, "k_rope": k_rope} if mode == "prefill" else None
+        return x + out, new_cache
+
+    # ---- absorbed decode: S == 1 ----
+    if cache is None:
+        raise ValueError("decode needs a cache")
+    pos = torch.full((B, 1), pos_t, device=x.device)
+    q_nope, q_rope, c_kv_new, k_rope_new = _mla_common(cfg, p, h, pos)
+    cache["c_kv"][:, pos_t] = c_kv_new[:, 0]
+    cache["k_rope"][:, pos_t] = k_rope_new[:, 0]
+    ckv, krp = cache["c_kv"], cache["k_rope"]
+    T = ckv.shape[1]
+    q_eff = torch.einsum("bshk,lhk->bshl", q_nope, p["wk_b"].to(cdt))
+    s = (torch.einsum("bshl,btl->bhst", q_eff.float(), ckv.float())
+         + torch.einsum("bshr,btr->bhst", q_rope.float(), krp.float())) * scale
+    s = torch.where(torch.arange(T, device=x.device) <= pos_t, s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    o_c = torch.einsum("bhst,btl->bshl", w.to(cdt).float(), ckv.float()).to(cdt)
+    o = torch.einsum("bshl,lhk->bshk", o_c, p["wv_b"].to(cdt))
+    out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(cdt))
     return x + out, cache

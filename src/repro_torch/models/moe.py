@@ -1,0 +1,167 @@
+"""Mixture-of-experts FFN (DeepSeek-V2 / Granite style).
+
+The counterpart of the JAX package's `repro/models/moe.py`, in its order of
+operations: per group of `group_size` tokens, an f32 router, top-k gates
+renormalized by their sum, the Switch balance loss, capacity slots in
+k-slot-major priority (every token's first choice before any token's
+second), assignments past the capacity dropped (they add nothing and the
+kept gates are not renormalized again), the experts' GLU over the filled
+slots, and the K-way weighted gather back.  Shared experts are an
+always-on dense GLU branch.
+
+Two dispatch modes, as in the reference (`MoEConfig.dispatch`): "scatter"
+adds the tokens into the expert buffer with `index_add_`; "index" scatters
+only the int32 slot -> token map and gathers the tokens.  Both give the
+same buffer.  The buffer is laid out (E, c, B, d) rather than the
+reference's (B, E, c, d), so that each expert's slots of the whole batch
+are one contiguous (c * B, d) matrix and the expert products are three
+batched GEMMs with no permuting copy; it holds the same rows.  The
+reference's sharding annotations have no counterpart on one card.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models.params import ParamDesc
+
+
+def moe_descs(cfg: ModelConfig):
+    m = cfg.moe
+    d, E, eff = cfg.d_model, m.n_experts, m.expert_ff
+    descs = {
+        "norm": L.norm_descs(cfg),
+        # the router is read in f32, so it is stored in f32 in any compute dtype
+        "router": ParamDesc((d, E), ("embed", "experts"), f32=True),
+        "w1": ParamDesc((E, d, eff), ("experts", "embed", "expert_ff")),
+        "w3": ParamDesc((E, d, eff), ("experts", "embed", "expert_ff")),
+        "w2": ParamDesc((E, eff, d), ("experts", "expert_ff", "embed")),
+    }
+    if m.n_shared:
+        sff = m.n_shared * eff
+        descs["shared"] = {
+            "w1": ParamDesc((d, sff), ("embed", "ff")),
+            "w3": ParamDesc((d, sff), ("embed", "ff")),
+            "w2": ParamDesc((sff, d), ("ff", "embed")),
+        }
+    return descs
+
+
+def capacity(g: int, k: int, E: int, factor: float) -> int:
+    """Slots per expert for a group of `g` tokens: ceil(g k / E * factor),
+    at least 4, rounded up to a multiple of 4."""
+    c = int(math.ceil(g * k / E * factor))
+    return max(4, ((c + 3) // 4) * 4)
+
+
+def route(cfg: ModelConfig, p, h):
+    """h: (B, t, d) -> probs (B, t, E) f32, gate_w (B, t, K) f32 (the top-k
+    probabilities, descending, renormalized by their sum) and gate_idx
+    (B, t, K)."""
+    logits = torch.matmul(h.float(), p["router"].float())
+    probs = torch.softmax(logits, dim=-1)
+    gate_w, gate_idx = torch.topk(probs, cfg.moe.top_k, dim=-1)
+    gate_w = gate_w / torch.clamp(gate_w.sum(-1, keepdim=True), min=1e-9)
+    return probs, gate_w, gate_idx
+
+
+def slots(gate_idx, n_experts: int, c: int):
+    """gate_idx: (B, t, K) -> (slot, keep), both (B, K, t).
+
+    An assignment's position in its expert counts the assignments to that
+    expert before it in (k, t) order; it is kept if the position is below
+    the capacity `c`.  slot = expert * c + position, or the trash slot
+    E * c for a dropped assignment."""
+    B, t, K = gate_idx.shape
+    eid = gate_idx.transpose(1, 2)                                  # (B, K, t)
+    idx_km = eid.reshape(B, 1, K * t)                               # k-major
+    # one-hot laid out (B, E, K t), so that the count runs along the
+    # innermost dim (a scan along an outer dim runs one thread per column)
+    oh = torch.zeros((B, n_experts, K * t), dtype=torch.int32, device=gate_idx.device)
+    oh.scatter_(1, idx_km, 1)
+    pos = torch.cumsum(oh, dim=2, dtype=torch.int32) - 1
+    pos_of = torch.gather(pos, 1, idx_km).reshape(B, K, t)
+    keep = pos_of < c
+    slot = torch.where(keep, eid * c + pos_of, n_experts * c)
+    return slot, keep
+
+
+def _dispatch(mode: str, h, rows, n_rows: int):
+    """The expert buffer's first `n_rows` rows (the trash rows cut off):
+    row rows[b, k, i] holds h[b, i]; an empty row is zero."""
+    B, t, d = h.shape
+    K = rows.shape[1]
+    h_flat = h.reshape(B * t, d)
+    if mode == "index":
+        # scatter only the row -> token map; empty rows read a zero row
+        inv = torch.full((n_rows + B,), B * t, dtype=torch.long, device=h.device)
+        tok = torch.arange(B * t, device=h.device)
+        for k in range(K):
+            inv[rows[:, k].reshape(-1)] = tok
+        return torch.cat([h_flat, h.new_zeros((1, d))])[inv[:n_rows]]
+    xs = h.new_zeros((n_rows + B, d))
+    for k in range(K):
+        xs.index_add_(0, rows[:, k].reshape(-1), h_flat)
+    return xs[:n_rows]
+
+
+def _route_chunk(cfg: ModelConfig, p, h):
+    """h: (B, t, d), one group of each sequence -> (y, aux_loss)."""
+    m = cfg.moe
+    E, K = m.n_experts, m.top_k
+    B, t, d = h.shape
+    c = capacity(t, K, E, m.capacity_factor)
+    cdt = h.dtype
+
+    probs, gate_w, gate_idx = route(cfg, p, h)
+    # Switch balance loss, E * sum_e f_e * P_e per group, averaged over B
+    f = torch.zeros((B, E), device=h.device).scatter_add_(
+        1, gate_idx.reshape(B, K * t), torch.ones((B, K * t), device=h.device)) / (t * K)
+    aux = (E * (f * probs.mean(dim=1)).sum(-1)).mean()
+
+    slot, keep = slots(gate_idx, E, c)
+    # row of the (E * c + 1, B, d) buffer: slot * B + b (the last B rows are trash)
+    rows = slot * B + torch.arange(B, device=h.device)[:, None, None]
+    xe = _dispatch(m.dispatch, h, rows, E * c * B).view(E, c * B, d)
+
+    act = L.act_fn(cfg.act)
+    a = act(torch.bmm(xe, p["w1"].to(cdt))) * torch.bmm(xe, p["w3"].to(cdt))
+    del xe
+    ye = torch.bmm(a, p["w2"].to(cdt)).view(E * c * B, d)
+    del a
+
+    y = h.new_zeros((B, t, d))
+    last = E * c * B - 1
+    for k in range(K):
+        kept = keep[:, k, :, None]
+        gathered = torch.where(kept, ye[rows[:, k].clamp(max=last)], 0)
+        y = y + gate_w[:, :, k, None].to(cdt) * gathered
+    return y, aux
+
+
+def apply_moe(cfg: ModelConfig, p, x):
+    """x: (B, S, d) -> (x + moe_out, aux_loss * aux_loss_weight).
+
+    The sequence is routed in groups of g = min(group_size, S) tokens, g
+    shrunk until it divides S (2049 -> 683); aux is averaged over the
+    groups."""
+    m = cfg.moe
+    B, S, d = x.shape
+    h = L.apply_norm(cfg, p["norm"], x)
+    g = min(m.group_size, S)
+    while S % g:
+        g -= 1
+    outs = [_route_chunk(cfg, p, h[:, i:i + g]) for i in range(0, S, g)]
+    out = torch.cat([y for y, _ in outs], dim=1)
+    aux = torch.stack([a for _, a in outs]).mean()
+
+    if m.n_shared:
+        sp = p["shared"]
+        cdt = h.dtype
+        act = L.act_fn(cfg.act)
+        z = act(torch.matmul(h, sp["w1"].to(cdt))) * torch.matmul(h, sp["w3"].to(cdt))
+        out = out + torch.matmul(z, sp["w2"].to(cdt))
+    return x + out, aux * m.aux_loss_weight

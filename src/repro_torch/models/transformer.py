@@ -6,10 +6,12 @@ The layer stack is a sequence of (pattern, repeats) groups (see
 the port runs a Python loop over `reps` and slices the stacked parameters.
 In training each repetition's body is checkpointed by `cfg.remat`, as the
 reference `jax.checkpoint`s its scanned body, and the loss is a
-sequence-chunked cross-entropy whose chunks are checkpointed too.
+sequence-chunked cross-entropy whose chunks are checkpointed too, plus the
+MoE layers' balance loss.
 
-The `attn`, `mamba` and `rglru` mixers with the `dense` FFN or none are
-ported; the other layer kinds raise and name their ROADMAP.md item.
+The `attn`, `mla`, `mamba` and `rglru` mixers with the `dense` or `moe` FFN
+or none are ported; cross-attention, the encoder-decoder and sinusoidal
+positions raise and name their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -24,14 +26,13 @@ from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import rglru as R
 from repro_torch.models import ssm as SSM
 from repro_torch.models.params import (ParamDesc, init_tree, stack_desc,
                                        tree_map, tree_map_desc)
 
 _NOT_PORTED = {
-    "mla": "MoE and MLA (ROADMAP.md, Queue 1)",
-    "moe": "MoE and MLA (ROADMAP.md, Queue 1)",
     "cross_attn": "the remaining archs (ROADMAP.md, Queue 1)",
     "enc_dec": "the remaining archs (ROADMAP.md, Queue 1)",
     "sinusoidal": "the remaining archs (ROADMAP.md, Queue 1)",
@@ -39,8 +40,8 @@ _NOT_PORTED = {
 
 
 def _check_ported(cfg: ModelConfig, spec: LayerSpec):
-    kinds = [spec.mixer if spec.mixer not in ("attn", "mamba", "rglru") else None,
-             spec.ffn if spec.ffn not in ("dense", "none") else None,
+    kinds = [spec.mixer if spec.mixer not in ("attn", "mla", "mamba", "rglru") else None,
+             spec.ffn if spec.ffn not in ("dense", "moe", "none") else None,
              "cross_attn" if spec.cross_attn else None,
              "enc_dec" if cfg.enc_dec else None,
              cfg.pos_embed if cfg.pos_embed != "rope" else None]
@@ -60,10 +61,14 @@ def layer_descs(cfg: ModelConfig, spec: LayerSpec):
         d: dict[str, Any] = {"mixer": SSM.mamba_descs(cfg)}
     elif spec.mixer == "rglru":
         d = {"mixer": R.rglru_descs(cfg)}
+    elif spec.mixer == "mla":
+        d = {"mixer": A.mla_descs(cfg)}
     else:
         d = {"mixer": A.attn_descs(cfg)}
     if spec.ffn == "dense":
         d["ffn"] = L.ffn_descs(cfg)
+    elif spec.ffn == "moe":
+        d["moe"] = M.moe_descs(cfg)
     return d
 
 
@@ -83,6 +88,8 @@ def layer_cache_descs(cfg: ModelConfig, spec: LayerSpec, batch: int, seq: int):
         return {"mixer": SSM.mamba_cache_descs(cfg, batch)}
     if spec.mixer == "rglru":
         return {"mixer": R.rglru_cache_descs(cfg, batch)}
+    if spec.mixer == "mla":
+        return {"mixer": A.mla_cache_descs(cfg, batch, seq)}
     return {"mixer": A.attn_cache_descs(cfg, batch, seq, spec.window)}
 
 
@@ -99,25 +106,32 @@ def build_cache_descriptors(cfg: ModelConfig, batch: int, seq: int):
 # ---------------------------------------------------------------------------
 
 def apply_layer(cfg: ModelConfig, spec: LayerSpec, p, x, *, mode, cache, pos_t):
-    """-> (x, new_cache); new_cache is None in train mode."""
+    """-> (x, new_cache, aux); new_cache is None in train mode; aux is the
+    MoE layer's weighted balance loss (an f32 scalar tensor), 0.0 for a
+    layer without MoE."""
     _check_ported(cfg, spec)
     c_mix = cache.get("mixer") if cache else None
+    aux = 0.0
     if spec.mixer == "mamba":
         x, nc = SSM.apply_mamba(cfg, p["mixer"], x, mode=mode, cache=c_mix, pos_t=pos_t)
     elif spec.mixer == "rglru":
         x, nc = R.apply_rglru(cfg, p["mixer"], x, mode=mode, cache=c_mix, pos_t=pos_t)
+    elif spec.mixer == "mla":
+        x, nc = A.apply_mla(cfg, p["mixer"], x, mode=mode, cache=c_mix, pos_t=pos_t)
     else:
         x, nc = A.apply_attn(cfg, p["mixer"], x, window=spec.window,
                              causal=spec.causal, mode=mode, cache=c_mix, pos_t=pos_t)
     if spec.ffn == "dense":
         x = L.apply_ffn(cfg, p["ffn"], x)
+    elif spec.ffn == "moe":
+        x, aux = M.apply_moe(cfg, p["moe"], x)
     if mode == "train":
         if cfg.cotangent_dtype:
             # pin the residual stream's cotangent dtype at every layer
             # boundary, as the reference does
             x = L.cotangent_cast(x, getattr(torch, cfg.cotangent_dtype))
-        return x, None
-    return x, {"mixer": nc}
+        return x, None, aux
+    return x, {"mixer": nc}, aux
 
 
 def _index(tree, r: int):
@@ -161,17 +175,20 @@ def _remat(cfg: ModelConfig, fn):
 
 def run_blocks(cfg: ModelConfig, blocks_params, x, *, mode, caches=None,
                pos_t=None):
-    """Run all (pattern, repeats) groups.  Returns (x, new_caches).
+    """Run all (pattern, repeats) groups.  Returns (x, new_caches, aux).
 
-    Train mode runs each repetition's body under `_remat` and returns no
-    caches (a None per group).  Prefill returns each group's caches stacked
-    along a leading `reps` dim, as the JAX package's scan does.  Decode
+    Train mode runs each repetition's body under `_remat`, returns no
+    caches (a None per group) and the sum of every layer's aux (an f32
+    scalar tensor); the other modes return aux 0.0 (the reference's
+    prefill and decode drop theirs).  Prefill returns each group's caches
+    stacked along a leading `reps` dim, as the JAX package's scan does.  Decode
     writes into `caches` in place (each layer's cache is a view of its
     group's stacked tensor; attention writes its new k and v, the recurrent
     mixers their new state and conv tail) and returns them.
     """
     if mode == "train":
-        return _run_blocks_train(cfg, blocks_params, x), [None] * len(cfg.blocks)
+        x, aux = _run_blocks_train(cfg, blocks_params, x)
+        return x, [None] * len(cfg.blocks), aux
     new_caches = []
     for gi, (pattern, reps) in enumerate(cfg.blocks):
         per_rep = []
@@ -180,7 +197,7 @@ def run_blocks(cfg: ModelConfig, blocks_params, x, *, mode, caches=None,
             c_r = _index(caches[gi], r) if mode == "decode" else None
             ncs = {}
             for i, spec in enumerate(pattern):
-                x, ncs[f"l{i}"] = apply_layer(
+                x, ncs[f"l{i}"], _ = apply_layer(
                     cfg, spec, p_r[f"l{i}"], x, mode=mode,
                     cache=c_r[f"l{i}"] if c_r else None, pos_t=pos_t)
             per_rep.append(ncs)
@@ -188,11 +205,13 @@ def run_blocks(cfg: ModelConfig, blocks_params, x, *, mode, caches=None,
             new_caches.append(caches[gi])
         else:
             new_caches.append(tree_map(lambda *ts: torch.stack(ts), *per_rep))
-    return x, new_caches
+    return x, new_caches, 0.0
 
 
 def _run_blocks_train(cfg: ModelConfig, blocks_params, x):
+    """-> (x, aux summed over every layer)."""
     cdt = L.compute_dtype(cfg)
+    aux = torch.zeros((), device=x.device)
     for gi, (pattern, reps) in enumerate(cfg.blocks):
         gp = blocks_params[gi]
         if cfg.bf16_param_stack:
@@ -201,15 +220,18 @@ def _run_blocks_train(cfg: ModelConfig, blocks_params, x):
             gp = tree_map(lambda t: t.to(cdt) if t.is_floating_point() else t, gp)
 
         def body(x, p_r, _pattern=pattern):
+            aux = torch.zeros((), device=x.device)
             for i, spec in enumerate(_pattern):
-                x, _ = apply_layer(cfg, spec, p_r[f"l{i}"], x, mode="train",
-                                   cache=None, pos_t=None)
-            return x
+                x, _, a = apply_layer(cfg, spec, p_r[f"l{i}"], x, mode="train",
+                                      cache=None, pos_t=None)
+                aux = aux + a
+            return x, aux
 
         body = _remat(cfg, body)
         for p_r in _unstack(gp, reps):
-            x = body(x, p_r)
-    return x
+            x, a = body(x, p_r)
+            aux = aux + a
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
@@ -265,22 +287,21 @@ def chunked_ce_loss(cfg: ModelConfig, params, x, labels):
 
 def forward_train(cfg: ModelConfig, params, batch):
     """batch: {"tokens", "labels"}, (B, S) integer tensors -> (loss,
-    {"ce", "aux"}).  `aux` (the MoE balance loss) is 0 until MoE is
-    ported."""
+    {"ce", "aux"}): loss = ce + aux, with aux the MoE layers' weighted
+    balance loss summed over the layers (0 without MoE)."""
     x = embed_tokens(cfg, params, batch["tokens"])
-    x, _ = run_blocks(cfg, params["blocks"], x, mode="train")
+    x, _, aux = run_blocks(cfg, params["blocks"], x, mode="train")
     x = L.apply_norm(cfg, params["final_norm"], x)
     if cfg.cotangent_dtype:
         x = L.cotangent_cast(x, getattr(torch, cfg.cotangent_dtype))
     ce = chunked_ce_loss(cfg, params, x, batch["labels"])
-    aux = torch.zeros((), device=x.device)
     return ce + aux, {"ce": ce, "aux": aux}
 
 
 def prefill(cfg: ModelConfig, params, tokens):
     """-> (last_token_logits, caches)."""
     x = embed_tokens(cfg, params, tokens)
-    x, caches = run_blocks(cfg, params["blocks"], x, mode="prefill")
+    x, caches, _ = run_blocks(cfg, params["blocks"], x, mode="prefill")
     x = L.apply_norm(cfg, params["final_norm"], x)
     return _logits(cfg, params, x[:, -1:]), caches
 
@@ -288,8 +309,8 @@ def prefill(cfg: ModelConfig, params, tokens):
 def decode_step(cfg: ModelConfig, params, caches, tokens, pos_t):
     """tokens: (B, 1); pos_t: int -> (logits, caches), caches updated in place."""
     x = embed_tokens(cfg, params, tokens)
-    x, new_caches = run_blocks(cfg, params["blocks"], x, mode="decode",
-                               caches=caches, pos_t=pos_t)
+    x, new_caches, _ = run_blocks(cfg, params["blocks"], x, mode="decode",
+                                  caches=caches, pos_t=pos_t)
     x = L.apply_norm(cfg, params["final_norm"], x)
     return _logits(cfg, params, x), new_caches
 

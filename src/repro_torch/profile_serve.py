@@ -5,16 +5,17 @@ runs it again under `torch.profiler` for the device side: busy time (sum of
 the kernels' own device times), the share of the wall time the card was
 idle, kernel launches, and the kernels that take the most device time.
 The cell is `chip_smoke.py`'s: a full-width model (`--arch`, qwen2-1.5b
-by default), bf16, batch 4 x 2048 prompt tokens; decode is profiled over 8
-steps.  Prints one JSON line per phase.  Needs a CUDA card.
+by default; `--max-repeats N` caps each layer group's repeats, as
+`serve.py`'s flag does), bf16, batch 4 x 2048 prompt tokens; decode is
+profiled over 8 steps.  Prints one JSON line per phase.  Needs a CUDA card.
 
 Run:  PYTHONPATH=src python -m repro_torch.profile_serve [--arch qwen2-1.5b |
-          falcon-mamba-7b | recurrentgemma-9b]
+          falcon-mamba-7b | recurrentgemma-9b | granite-moe-3b-a800m |
+          deepseek-v2-236b] [--max-repeats N]
 """
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import time
 
@@ -24,7 +25,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import serve
 from repro_torch.configs import registry
-from repro_torch.device import resolve_device
+from repro_torch.device import device_memory, resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import compute_dtype
 from repro_torch.models.params import init_tree
@@ -62,9 +63,11 @@ def _breakdown(fn, n, wall_ms) -> dict:
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="qwen2-1.5b", choices=registry.ARCH_NAMES)
+    ap.add_argument("--max-repeats", type=int, default=None,
+                    help="cap every layer group's repeats (widths stay)")
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
-    cfg = dataclasses.replace(registry.get_config(args.arch), use_pallas=True)
+    cfg = serve.served_config(args.arch, args.max_repeats, device_memory(dev))
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     params = init_tree(T.build_descriptors(cfg), gen, dev, dtype=compute_dtype(cfg))
@@ -87,8 +90,8 @@ def main(argv=None):
 
         out["decode_step"] = _breakdown(decode, STEPS, _wall_ms(decode, STEPS))
     for phase, nums in out.items():
-        print(json.dumps({"phase": phase, "arch": cfg.name, "batch": B,
-                          "prompt_len": P, **nums}))
+        print(json.dumps({"phase": phase, "arch": cfg.name, "n_layers": cfg.n_layers,
+                          "batch": B, "prompt_len": P, **nums}))
     return out
 
 

@@ -2,15 +2,22 @@
 
 The port's counterpart of `examples/serve_lm.py`, at full width by default,
 with bf16 compute and prefill through the CUDA kernels (`use_pallas=True`):
-flash attention for qwen2-1.5b and recurrentgemma-9b's local layers, the
-selective scan for falcon-mamba-7b, the RG-LRU scan for recurrentgemma-9b.
-The weights are random, drawn from a seeded `torch.Generator` on the
-device; they are stored once in the compute dtype, which rounds exactly as
-the JAX package's per-use cast of f32 weights does (the few leaves that
-package reads in f32 stay f32).
+flash attention for qwen2-1.5b, granite-moe-3b-a800m and recurrentgemma-9b's
+local layers, the selective scan for falcon-mamba-7b, the RG-LRU scan for
+recurrentgemma-9b (deepseek-v2-236b's MLA reaches no kernel, as in the
+reference).  The weights are random, drawn from a seeded `torch.Generator`
+on the device; they are stored once in the compute dtype, which rounds
+exactly as the JAX package's per-use cast of f32 weights does (the few
+leaves that package reads in f32 stay f32).
+
+`--max-repeats N` caps every layer group's repeats at N, widths unchanged.
+A config whose weights alone do not fit in the card's memory raises before
+they are drawn: deepseek-v2-236b needs 471 GB in bf16, and
+`--max-repeats 4` (1 dense + 4 MoE layers, 34.6 GB) fits one H100.
 
 Run:  PYTHONPATH=src python -m repro_torch.serve [--arch qwen2-1.5b |
-          falcon-mamba-7b | recurrentgemma-9b] [--batch 4] [--prompt-len 2048]
+          falcon-mamba-7b | recurrentgemma-9b | granite-moe-3b-a800m |
+          deepseek-v2-236b] [--max-repeats N] [--batch 4] [--prompt-len 2048]
           [--new-tokens 64] [--device cuda]
 """
 from __future__ import annotations
@@ -18,6 +25,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import time
 
 import torch
@@ -25,20 +33,47 @@ import torch.nn.functional as F
 
 from repro_torch.configs import registry
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import resolve_device, synchronize
+from repro_torch.device import device_memory, resolve_device, synchronize
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import compute_dtype
-from repro_torch.models.params import init_tree
+from repro_torch.models.params import init_tree, is_desc, tree_leaves
 from repro_torch.train.steps import make_prefill_step, make_serve_step
 
 
-ATTN_CACHE_KEYS = ("k", "v", "pos")
+ATTN_CACHE_KEYS = ("k", "v", "pos", "c_kv", "k_rope")
+
+
+def weight_bytes(cfg: ModelConfig) -> int:
+    """Bytes of the weights as `init_tree` stores them for serving: the
+    compute dtype, but f32 for the leaves read in f32."""
+    size = torch.empty((), dtype=compute_dtype(cfg)).element_size()
+    return sum(math.prod(d.shape) * (4 if d.f32 else size)
+               for d in tree_leaves(T.build_descriptors(cfg), is_leaf=is_desc))
+
+
+def served_config(arch: str, max_repeats: int | None = None,
+                  capacity_bytes: int | None = None) -> ModelConfig:
+    """The full-width config of `arch` with the kernels on, each layer
+    group's repeats capped at `max_repeats`; raises if its weights alone
+    exceed `capacity_bytes` (the card's memory)."""
+    cfg = registry.get_config(arch)
+    if max_repeats is not None:
+        cfg = registry.cut_depth(cfg, max_repeats)
+    cfg = dataclasses.replace(cfg, use_pallas=True)
+    need = weight_bytes(cfg)
+    if capacity_bytes is not None and need > capacity_bytes:
+        raise ValueError(
+            f"{arch} with {cfg.n_layers} layers needs {need / 1e9:.1f} GB for its "
+            f"{cfg.compute_dtype} weights alone, more than the device's "
+            f"{capacity_bytes / 1e9:.1f} GB; cut the depth with --max-repeats N")
+    return cfg
 
 
 def grow_caches(caches, cur_len: int, total: int):
     """Pad the sequence dim (dim 2 of the stacked (reps, B, T, ...) caches)
-    of the attention caches (`k`, `v`, ring positions `pos`) from the prompt
-    length to the full generation length; ring position slots are padded
+    of the attention caches (`k`, `v`, ring positions `pos`, MLA's latent
+    `c_kv` and `k_rope`) from the prompt length to the full generation
+    length; ring position slots are padded
     with the invalid marker -1.  A ring shorter than the prompt, and the
     fixed-size recurrent states and conv tails, stay as they are, whatever
     their widths."""
@@ -109,15 +144,19 @@ def serve(cfg: ModelConfig, *, batch: int, prompt_len: int, new_tokens: int,
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="qwen2-1.5b", choices=registry.ARCH_NAMES)
+    ap.add_argument("--max-repeats", type=int, default=None,
+                    help="cap every layer group's repeats (widths stay)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=2048)
     ap.add_argument("--new-tokens", type=int, default=64)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    cfg = dataclasses.replace(registry.get_config(args.arch), use_pallas=True)
+    dev = resolve_device(args.device)
+    cfg = served_config(args.arch, args.max_repeats, device_memory(dev))
     res = serve(cfg, batch=args.batch, prompt_len=args.prompt_len,
-                new_tokens=args.new_tokens, device=args.device)
-    print(json.dumps({k: v for k, v in res.items() if k != "tokens"}))
+                new_tokens=args.new_tokens, device=dev)
+    print(json.dumps({"arch": cfg.name, "n_layers": cfg.n_layers,
+                      **{k: v for k, v in res.items() if k != "tokens"}}))
     print("generated token ids (first sequence):", res["tokens"][0, :12].tolist())
     return res
 

@@ -15,15 +15,18 @@ device finished).  At the end: tokens/s over the steps after the first, the
 peak device memory, and the model-FLOPs share of the card's 989 TFLOP/s
 bf16 peak (H100 SXM, dense).  Model FLOPs per step are
 
-    6 * N * B * S  +  12 * B * sum over attention layers of H * Dh * P
+    6 * N * B * S  +  6 * B * sum over attention layers of H * (Dqk + Dv) * P
 
-with N the parameters that enter a matrix product (all of them but an
-untied input embedding table), H the query heads, Dh the head dim and P the
-(query, key) pairs one sequence attends (S (S + 1) / 2 for causal attention,
-fewer under a window): forward, backward, no recompute counted.
+with N the active parameters that enter a matrix product (all of them but
+an untied input embedding table; of a MoE layer's routed experts only the
+top-k), H the query heads, Dqk and Dv the widths of the QK^T and PV
+products (the head dim for GQA; nope + rope and v_dim for MLA) and P the
+(query, key) pairs one sequence attends (S (S + 1) / 2 for causal
+attention, fewer under a window): forward, backward, no recompute counted.
 
 Run:  PYTHONPATH=src python -m repro_torch.train [--arch qwen2-1.5b |
-          falcon-mamba-7b | recurrentgemma-9b] [--smoke] [--steps 6]
+          falcon-mamba-7b | recurrentgemma-9b | granite-moe-3b-a800m |
+          deepseek-v2-236b] [--smoke] [--steps 6]
           [--seq-len 4096] [--batch 8] [--microbatches 4] [--device cuda]
 """
 from __future__ import annotations
@@ -51,7 +54,7 @@ PEAK_BF16_FLOPS = 989e12    # H100 SXM dense bf16 tensor-core rate
 def model_flops(cfg: ModelConfig, batch: int, seq: int) -> float:
     """Model FLOPs of one train step over `batch` sequences of `seq` tokens
     (the formula in the module docstring)."""
-    n = cfg.param_count()
+    n = cfg.active_param_count()
     if not cfg.tie_embeddings:
         n -= cfg.vocab_padded * cfg.d_model
     attn = 0
@@ -60,8 +63,11 @@ def model_flops(cfg: ModelConfig, batch: int, seq: int) -> float:
             if spec.mixer == "attn":
                 w = spec.window if spec.window > 0 else seq
                 pairs = sum(min(r + 1, w) for r in range(seq))
-                attn += reps * cfg.n_heads * cfg.head_dim * pairs
-    return 6.0 * n * batch * seq + 12.0 * batch * attn
+                attn += reps * cfg.n_heads * 2 * cfg.head_dim * pairs
+            elif spec.mixer == "mla":
+                widths = cfg.mla_nope_dim + cfg.mla_rope_dim + cfg.mla_v_dim
+                attn += reps * cfg.n_heads * widths * seq * (seq + 1) // 2
+    return 6.0 * n * batch * seq + 6.0 * batch * attn
 
 
 def init_params(cfg: ModelConfig, seed: int, device):

@@ -50,7 +50,8 @@ def test_configs_match_reference(smoke):
     """Every ported arch, at full width and reduced."""
     get_j = jreg.smoke_config if smoke else jreg.get_config
     get_t = treg.smoke_config if smoke else treg.get_config
-    assert treg.ARCH_NAMES == ["qwen2-1.5b", "falcon-mamba-7b", "recurrentgemma-9b"]
+    assert treg.ARCH_NAMES == ["qwen2-1.5b", "falcon-mamba-7b", "recurrentgemma-9b",
+                               "granite-moe-3b-a800m", "deepseek-v2-236b"]
     for arch in treg.ARCH_NAMES:
         jc, tc = get_j(arch), get_t(arch)
         assert dataclasses.asdict(jc) == dataclasses.asdict(tc), arch

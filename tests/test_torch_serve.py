@@ -179,9 +179,14 @@ def test_transformer_stores_drawn_weights_in_the_compute_dtype():
 
 
 def test_unported_layer_kinds_raise():
+    """MLA and MoE are ported; cross-attention, the encoder-decoder and
+    sinusoidal positions still raise and name ROADMAP.md."""
     _, tc = _cfgs(False)
-    for spec in (LayerSpec(mixer="mla"), LayerSpec(ffn="moe")):
-        cfg = dataclasses.replace(tc, blocks=(((spec,), 1),))
+    for arch in ("granite-moe-3b-a800m", "deepseek-v2-236b"):
+        assert TT.build_descriptors(treg.smoke_config(arch))
+    for cfg in (dataclasses.replace(tc, blocks=(((LayerSpec(cross_attn=True),), 1),)),
+                dataclasses.replace(tc, enc_dec=True),
+                dataclasses.replace(tc, pos_embed="sinusoidal")):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             TT.build_descriptors(cfg)
 
