@@ -1,7 +1,6 @@
 """Architecture registry + reduced (smoke) config factory.
 
-Only the architectures the port runs are listed.  The JAX package knows more;
-asking for one of those raises and points at ROADMAP.md, which orders them.
+The port runs all ten of the JAX package's architectures.
 """
 from __future__ import annotations
 
@@ -11,7 +10,8 @@ import importlib
 from repro_torch.configs.base import ModelConfig
 
 ARCH_NAMES = ["qwen2-1.5b", "falcon-mamba-7b", "recurrentgemma-9b",
-              "granite-moe-3b-a800m", "deepseek-v2-236b"]
+              "granite-moe-3b-a800m", "deepseek-v2-236b", "qwen1.5-0.5b",
+              "stablelm-12b", "gemma3-27b", "qwen2-vl-7b", "whisper-large-v3"]
 
 _MODULES = {
     "qwen2-1.5b": "qwen2_1_5b",
@@ -19,13 +19,17 @@ _MODULES = {
     "recurrentgemma-9b": "recurrentgemma_9b",
     "granite-moe-3b-a800m": "granite_moe_3b",
     "deepseek-v2-236b": "deepseek_v2_236b",
+    "qwen1.5-0.5b": "qwen1_5_0_5b",
+    "stablelm-12b": "stablelm_12b",
+    "gemma3-27b": "gemma3_27b",
+    "qwen2-vl-7b": "qwen2_vl_7b",
+    "whisper-large-v3": "whisper_large_v3",
 }
 
 
 def get_config(name: str) -> ModelConfig:
     if name not in _MODULES:
-        raise KeyError(f"arch {name!r} is not ported (ported: {ARCH_NAMES}); "
-                       f"ROADMAP.md lists the order in which the others come")
+        raise KeyError(f"unknown arch {name!r}; known: {ARCH_NAMES}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
     return mod.CONFIG
 

@@ -1,0 +1,19 @@
+"""stablelm-12b [dense] — 40L d_model=5120 32H (GQA kv=8) d_ff=13824 vocab=100352.
+
+[hf:stabilityai/stablelm-2-1_6b; hf]
+"""
+from repro_torch.configs.base import LayerSpec, ModelConfig
+
+DENSE = LayerSpec(mixer="attn", ffn="dense")
+
+CONFIG = ModelConfig(
+    name="stablelm-12b",
+    family="dense",
+    d_model=5120,
+    n_heads=32,
+    n_kv_heads=8,
+    d_ff=13824,
+    vocab=100352,
+    blocks=(((DENSE,), 40),),
+    tie_embeddings=False,
+)

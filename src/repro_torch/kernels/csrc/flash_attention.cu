@@ -8,7 +8,7 @@
 //   s = q.k^T * scale in f32; masked scores are -1e30 (causal: col <= row,
 //   window: col > row - window, both top-left aligned); running m, l, acc in
 //   f32; p is rounded to the input dtype before the PV product; the final
-//   divide floors l at 1e-30.  f32 and bf16; head_dim 16, 32, 64, 128, 256.
+//   divide floors l at 1e-30.  f32 and bf16; head_dim 16, 32, 64, 128, 160, 256.
 //
 // What bounds it on the card: at the serving prefill shape (B=4, S=T=2048,
 // Hq=12, Hkv=2, D=128, bf16, causal) the two products are ~51.5 GFLOP
@@ -21,8 +21,9 @@
 // bf16 (the serving dtype): flash attention on Hopper's warpgroup products.
 //   * one block of two warpgroups per (b*Hq + h, 128-row q tile); each
 //     warpgroup owns 64 query rows, each of its warps 16.  kv tiles are 128
-//     rows (64 at D=256, whose output accumulator alone is 128 f32 registers
-//     a thread); one block a SM, up to 255 registers a thread;
+//     rows (64 at D=160 and 256, whose output accumulators are 80 and 128 f32
+//     registers a thread: with 128-row tiles D=160 spilled 104 bytes); one
+//     block a SM, up to 255 registers a thread;
 //   * S = Q K^T is wgmma.mma_async with both operands in shared memory
 //     (K-major), O += P V with P from registers and V N-major.  S and O are
 //     accumulator fragments that never leave registers: each thread owns two
@@ -34,7 +35,10 @@
 //     V_{j-1}, and runs the softmax of S_j while the PV product is on the
 //     tensor cores; only the rescale of O waits for it;
 //   * Q, K and V sit in shared memory as wgmma wants them, in 128-byte-swizzled
-//     panels (64 columns; 32- and 64-byte swizzles at D=16 and 32), filled
+//     panels (64 columns; 32- and 64-byte swizzles at D=16 and 32; at D=160,
+//     which 64-column panels do not divide, five 32-column panels with the
+//     64-byte swizzle, so that QK^T takes its 10 k16 steps and PV one
+//     m64n160 product a k step, with no padded column), filled
 //     by cp.async: K_{j+1} and V_j load while step j computes, through a
 //     ring of two K and two V stages;
 //   * scores live in the log2 domain: one FFMA turns a raw score into
@@ -94,8 +98,12 @@ __device__ __forceinline__ KvRange kv_range(const Params& P, int q0, int rows) {
 template <int D> struct Cfg {
   static constexpr int THREADS = 256;             // two warpgroups, 64 query rows each
   static constexpr int BQ = 128;                  // query rows per block
-  static constexpr int BK = D == 256 ? 64 : 128;  // kv rows per tile
-  static constexpr int W = D >= 64 ? 128 : 2 * D; // swizzle width: bytes of a panel row
+  // kv rows per tile: 64 from D = 160 up, where the output accumulator (80
+  // or 128 f32 registers a thread) beside a 128-column score tile spills
+  static constexpr int BK = D >= 160 ? 64 : 128;
+  // swizzle width, bytes of a panel row: 128 where D is a multiple of 64;
+  // 64 at D = 160 (five 32-column panels) and D = 32; 32 at D = 16
+  static constexpr int W = D % 64 == 0 ? 128 : D % 32 == 0 ? 64 : 32;
   static constexpr int Q_BYTES = BQ * D * 2, KV_BYTES = BK * D * 2;
   // Q, then two K stages, then two V stages; +1024 to align the base
   static constexpr size_t bytes = (size_t)Q_BYTES + 4 * KV_BYTES + 1024;
@@ -214,6 +222,15 @@ __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t (&a)[4], 
                "%49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, 1, 1, 1, 1;\n"
                : WG_F64(0) : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
 }
+__device__ __forceinline__ void wgmma_rs_n160(float* d, const uint32_t (&a)[4], uint64_t db) {
+  asm volatile("wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+               "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+               "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, "
+               "%33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, "
+               "%49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, "
+               "%65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79}, {%80, %81, %82, %83}, %84, 1, 1, 1, 1;\n"
+               : WG_F64(0), WG_F16(64) : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
 __device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t (&a)[4], uint64_t db) {
   asm volatile("wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
                "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
@@ -242,6 +259,7 @@ __device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db) {
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t (&a)[4], uint64_t db) {
   if constexpr (N == 256) wgmma_rs_n256(d, a, db);
+  else if constexpr (N == 160) wgmma_rs_n160(d, a, db);
   else if constexpr (N == 128) wgmma_rs_n128(d, a, db);
   else if constexpr (N == 64) wgmma_rs_n64(d, a, db);
   else if constexpr (N == 32) wgmma_rs_n32(d, a, db);
@@ -662,6 +680,7 @@ cudaError_t dispatch_d(const Params& P, int B, int D, cudaStream_t stream) {
     case 32: return launch<BF16, 32>(P, B, stream);
     case 64: return launch<BF16, 64>(P, B, stream);
     case 128: return launch<BF16, 128>(P, B, stream);
+    case 160: return launch<BF16, 160>(P, B, stream);
     case 256: return launch<BF16, 256>(P, B, stream);
     default: return cudaErrorInvalidValue;
   }

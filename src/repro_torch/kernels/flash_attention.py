@@ -17,7 +17,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import ref_attention
 
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 128, 160, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -1,5 +1,6 @@
-"""Attention: blocked causal, banded local-window and decode, for GQA layers,
-and DeepSeek-V2's multi-head latent attention (MLA).
+"""Attention: blocked causal, banded local-window, bidirectional and decode,
+for GQA self- and cross-attention layers, and DeepSeek-V2's multi-head
+latent attention (MLA).
 
 Plain PyTorch versions of the JAX package's memory-bounded attention
 (`repro/models/attention.py`), with the same blocking so that the two agree
@@ -8,19 +9,32 @@ closely:
 * causal attention: "super-row" decomposition, online softmax over kv
   blocks inside each row band (q/k and v may differ in width, as MLA's do);
 * local (windowed) attention: per q block, a (window + q_block) kv slice;
-* decode: one query against the cache (global) or the ring buffer (local);
+* bidirectional attention (whisper's encoder and cross-attention): dense,
+  or online over kv blocks where the keys are many and the block divides
+  them;
+* decode: one query against the cache (global), the ring buffer (local),
+  or the encoder's keys (cross);
 * MLA: low-rank q and kv with RMS-normed latents; prefill expands the
   latent kv per head and runs the causal attention above; decode absorbs
   W_k into the query and attends over the latent cache (`c_kv`, `k_rope`).
 
-With `cfg.use_pallas`, GQA prefill goes through the hand-written flash
-kernel (`repro_torch.kernels.ops.flash_attention`) instead.  Decode stays
-plain: the reference has no decode kernel.  Training runs the plain path
-under autograd: the kernel is forward-only, as the reference's is (it
-defines no VJP), so `use_pallas` in a GQA layer's train mode raises.  MLA
-never reaches the kernel, in any mode, as in the reference (its q/k and v
-widths differ), so `use_pallas` changes nothing there.  Cross-attention
-and the bidirectional (encoder) path come with their archs (ROADMAP.md).
+With `cfg.use_pallas`, GQA self-attention in prefill (and in the encoder,
+which runs in train mode) goes through the hand-written flash kernel
+(`repro_torch.kernels.ops.flash_attention`) instead.  Decode stays plain:
+the reference has no decode kernel.  Training runs the plain path under
+autograd: the kernel is forward-only, as the reference's is (it defines no
+VJP), so `use_pallas` in a GQA layer's train mode raises while autograd
+records; without it (whisper's encoder inside a prefill) the kernel runs.
+Cross-attention and MLA never reach the kernel, in any mode, as in the
+reference, so `use_pallas` changes nothing there.
+
+The local layers' ring cache departs from the reference on purpose: prefill
+stores position p in slot p mod W, where decode writes and looks for it
+(the reference stores the last W positions in slots 0..W-1, which decode
+then overwrites while they are still in the window when the prompt is
+longer than the window and not a multiple of it).  Where the prompt is no
+longer than the window, or a multiple of it, the two caches are equal.
+
 The JAX package's sharding annotations (`constrain`) have no counterpart
 on one card.
 """
@@ -111,8 +125,22 @@ def local_attention(q, k, v, *, scale, window, q_block=512):
     return torch.cat(outs, dim=1)
 
 
+def bidir_attention(q, k, v, *, scale, kv_block=1024):
+    """Full bidirectional attention (encoder, cross).  q: (B,S,H,D); k, v:
+    (B,T,H,D).  Dense where T <= 2 kv_block or kv_block does not divide T;
+    else online over kv blocks, every row placed past the last key so that
+    the causal test passes everywhere."""
+    T = k.shape[1]
+    if T <= 2 * kv_block or T % kv_block:
+        return decode_attention(q, k, v, torch.ones(T, dtype=torch.bool, device=q.device),
+                                scale)
+    return _online_rows(q, k, v, scale, kv_block, q_start=T, k_start=0)
+
+
 def decode_attention(q, k_cache, v_cache, mask, scale):
-    """q: (B, 1, H, D); cache: (B, T, H, D); mask: (B, T) or (T,) bool."""
+    """Dense attention: q (B, S, H, D), a decode step's S = 1 or all of a
+    bidirectional layer's rows; cache: (B, T, H, D); mask: (B, T) or (T,)
+    bool."""
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k_cache.float()) * scale
     if mask.dim() == 1:
         mask = mask[None]
@@ -161,18 +189,24 @@ def attn_cache_descs(cfg: ModelConfig, batch: int, seq: int, window: int):
     }
 
 
-def _project_qkv(cfg: ModelConfig, p, x):
+def _project(cfg: ModelConfig, p, x, name: str):
+    """x's projection by `w{name}` ("q", "k" or "v"), plus its bias, and
+    qk-normed for q and k."""
     cdt = L.compute_dtype(cfg)
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(cdt))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(cdt))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(cdt))
+    y = torch.einsum("bsd,dhk->bshk", x, p["w" + name].to(cdt))
     if cfg.qkv_bias:
-        q = q + p["bq"].to(cdt)
-        k = k + p["bk"].to(cdt)
-        v = v + p["bv"].to(cdt)
-    if cfg.qk_norm:
-        q = L.rms_head_norm(p["q_norm"], q)
-        k = L.rms_head_norm(p["k_norm"], k)
+        y = y + p["b" + name].to(cdt)
+    if cfg.qk_norm and name != "v":
+        y = L.rms_head_norm(p[name + "_norm"], y)
+    return y
+
+
+def _project_qkv(cfg: ModelConfig, p, x, kv_x=None):
+    """q from x; k and v from `kv_x` (the encoder's output, for
+    cross-attention), or from x."""
+    kv_x = x if kv_x is None else kv_x
+    q, k, v = (_project(cfg, p, x, "q"), _project(cfg, p, kv_x, "k"),
+               _project(cfg, p, kv_x, "v"))
     if cfg.cotangent_dtype:
         # the f32 score products would otherwise push f32 cotangents back
         # through the projections
@@ -188,36 +222,39 @@ def _expand_kv(cfg: ModelConfig, k):
 
 
 def apply_attn(cfg: ModelConfig, p, x, *, window: int, causal: bool = True,
-               mode: str = "train", cache=None, pos_t=None):
+               mode: str = "train", cache=None, pos_t=None, enc_out=None,
+               cross: bool = False):
     """Returns (out, new_cache).
 
     Train mode is prefill without a cache (`new_cache` is None).  Decode
     writes the new token's k and v into `cache` in place (the JAX package
-    returns an updated copy) and returns the same dict.
+    returns an updated copy) and returns the same dict.  With `cross`, k
+    and v come from `enc_out` (B, F, d) in train and prefill, and prefill's
+    cache holds them; decode projects only q and reads that cache.
     """
     B, S, _ = x.shape
     scale = 1.0 / math.sqrt(cfg.head_dim)
     h = L.apply_norm(cfg, p["norm"], x)
 
     if mode in ("train", "prefill"):
-        if mode == "train" and cfg.use_pallas:
+        kernel = cfg.use_pallas and not cross
+        if kernel and mode == "train" and torch.is_grad_enabled():
             raise NotImplementedError(L.FORWARD_ONLY.format(kernel="flash attention"))
-        q, k, v = _project_qkv(cfg, p, h)
-        pos = torch.arange(S, device=x.device)[None]
-        if cfg.pos_embed == "rope":
+        q, k, v = _project_qkv(cfg, p, h, enc_out if cross else None)
+        if cfg.pos_embed == "rope" and not cross:
+            pos = torch.arange(S, device=x.device)[None]
             q = L.positions_for(cfg, q, pos)
             k = L.positions_for(cfg, k, pos)
-        if cfg.use_pallas:
+        if kernel:
             from repro_torch.kernels import ops as kops
             o = kops.flash_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 causal=causal, window=window, scale=scale).transpose(1, 2)
-        elif not causal:
-            raise NotImplementedError("bidirectional attention is ported with "
-                                      "the encoder archs (ROADMAP.md, Queue 1)")
         else:
             ke, ve = _expand_kv(cfg, k), _expand_kv(cfg, v)
-            if window > 0:
+            if cross or not causal:
+                o = bidir_attention(q, ke, ve, scale=scale, kv_block=cfg.attn_kv_block)
+            elif window > 0:
                 o = local_attention(q, ke, ve, scale=scale, window=window,
                                     q_block=cfg.attn_q_block)
             else:
@@ -226,11 +263,13 @@ def apply_attn(cfg: ModelConfig, p, x, *, window: int, causal: bool = True,
         out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(o.dtype))
         if mode == "train":
             return x + out, None
-        if window > 0:
+        if window > 0 and not cross:
+            # the last W positions, position p in slot p mod W: a roll by S mod W
             W = min(window, S)
+            r = S % W
             pos_c = torch.arange(S - W, S, device=x.device, dtype=torch.int32)
-            new_cache = {"k": k[:, S - W:], "v": v[:, S - W:],
-                         "pos": pos_c[None].expand(B, W).contiguous()}
+            new_cache = {"k": k[:, S - W:].roll(r, 1), "v": v[:, S - W:].roll(r, 1),
+                         "pos": pos_c.roll(r, 0)[None].expand(B, W).contiguous()}
         else:
             new_cache = {"k": k, "v": v}
         return x + out, new_cache
@@ -238,6 +277,13 @@ def apply_attn(cfg: ModelConfig, p, x, *, window: int, causal: bool = True,
     # ---- decode: S == 1 ----
     if cache is None:
         raise ValueError("decode needs a cache")
+    if cross:
+        q = _project(cfg, p, h, "q")
+        T = cache["k"].shape[1]
+        o = decode_attention(q, _expand_kv(cfg, cache["k"]), _expand_kv(cfg, cache["v"]),
+                             torch.ones(T, dtype=torch.bool, device=x.device), scale)
+        out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(o.dtype))
+        return x + out, cache
     q, k, v = _project_qkv(cfg, p, h)
     pos = torch.full((B, 1), pos_t, device=x.device)
     if cfg.pos_embed == "rope":

@@ -1,8 +1,5 @@
-"""Shared model primitives: norms, FFN, embeddings, rotary positions, and
-the cotangent dtype barrier of training.
-
-M-RoPE (qwen2-vl) and sinusoidal positions (whisper) come with their archs
-(ROADMAP.md).
+"""Shared model primitives: norms, FFN, embeddings, rotary, M-RoPE and
+sinusoidal positions, and the cotangent dtype barrier of training.
 """
 from __future__ import annotations
 
@@ -145,7 +142,7 @@ def unembed_table(cfg: ModelConfig, params):
 
 
 # ---------------------------------------------------------------------------
-# positions: RoPE (half-split form)
+# positions: RoPE (half-split form), M-RoPE, sinusoidal
 # ---------------------------------------------------------------------------
 
 def rope_freqs(cfg: ModelConfig, rot_dim: int, device=None):
@@ -169,9 +166,39 @@ def apply_rope(cfg: ModelConfig, x, positions, rot_dim: int | None = None):
     return out.to(x.dtype)
 
 
+def apply_mrope(cfg: ModelConfig, x, positions):
+    """Qwen2-VL M-RoPE: the head_dim/2 frequency slots are cut into
+    `cfg.mrope_sections` (temporal, height, width); slot i turns by the
+    position id of its section.  x: (..., S, H, D); positions: (..., S),
+    the same id for all three sections (a text stream), or (..., 3, S)."""
+    D = x.shape[-1]
+    half = D // 2
+    sections = cfg.mrope_sections
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to head_dim/2 = {half}")
+    if positions.dim() == x.dim() - 2:
+        positions = torch.stack([positions] * 3, dim=-2)
+    inv = rope_freqs(cfg, D, device=x.device)
+    sec_id = torch.cat([torch.full((n,), i, dtype=torch.long, device=x.device)
+                        for i, n in enumerate(sections)])        # (half,)
+    pos_slot = positions.movedim(-2, -1)[..., sec_id]            # (..., S, half)
+    ang = pos_slot.float() * inv
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def sinusoidal_pos(d_model: int, positions):
+    """Whisper's sinusoids: positions (...,) -> (..., d_model), f32."""
+    half = d_model // 2
+    inv = torch.exp(-torch.arange(half, dtype=torch.float32, device=positions.device)
+                    * (math.log(10000.0) / max(1, half - 1)))
+    ang = positions[..., None].float() * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 def positions_for(cfg: ModelConfig, q, pos):
     """Apply the configured positional scheme to q/k tensors (..., S, H, D)."""
     if cfg.mrope_sections:
-        raise NotImplementedError("M-RoPE is ported with qwen2-vl-7b "
-                                  "(ROADMAP.md, Queue 1)")
+        return apply_mrope(cfg, q, pos)
     return apply_rope(cfg, q, pos)

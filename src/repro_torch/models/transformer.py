@@ -9,9 +9,12 @@ reference `jax.checkpoint`s its scanned body, and the loss is a
 sequence-chunked cross-entropy whose chunks are checkpointed too, plus the
 MoE layers' balance loss.
 
-The `attn`, `mla`, `mamba` and `rglru` mixers with the `dense` or `moe` FFN
-or none are ported; cross-attention, the encoder-decoder and sinusoidal
-positions raise and name their ROADMAP.md item.
+An encoder-decoder config (whisper) adds an `encoder` tree of
+bidirectional attention layers (`ENC_SPEC`), run over the frame embeddings
+plus sinusoidal positions in train mode, as the reference runs it even in
+prefill; each decoder layer with `cross_attn` attends over the encoder's
+output after its self-attention, and its prefill caches that output's keys
+and values for decode.
 """
 from __future__ import annotations
 
@@ -32,23 +35,7 @@ from repro_torch.models import ssm as SSM
 from repro_torch.models.params import (ParamDesc, init_tree, stack_desc,
                                        tree_map, tree_map_desc)
 
-_NOT_PORTED = {
-    "cross_attn": "the remaining archs (ROADMAP.md, Queue 1)",
-    "enc_dec": "the remaining archs (ROADMAP.md, Queue 1)",
-    "sinusoidal": "the remaining archs (ROADMAP.md, Queue 1)",
-}
-
-
-def _check_ported(cfg: ModelConfig, spec: LayerSpec):
-    kinds = [spec.mixer if spec.mixer not in ("attn", "mla", "mamba", "rglru") else None,
-             spec.ffn if spec.ffn not in ("dense", "moe", "none") else None,
-             "cross_attn" if spec.cross_attn else None,
-             "enc_dec" if cfg.enc_dec else None,
-             cfg.pos_embed if cfg.pos_embed != "rope" else None]
-    for kind in kinds:
-        if kind is not None:
-            where = _NOT_PORTED.get(kind, "ROADMAP.md")
-            raise NotImplementedError(f"{kind!r} layers are not ported yet: {where}")
+ENC_SPEC = LayerSpec(mixer="attn", window=0, ffn="dense", causal=False)
 
 
 # ---------------------------------------------------------------------------
@@ -56,15 +43,18 @@ def _check_ported(cfg: ModelConfig, spec: LayerSpec):
 # ---------------------------------------------------------------------------
 
 def layer_descs(cfg: ModelConfig, spec: LayerSpec):
-    _check_ported(cfg, spec)
     if spec.mixer == "mamba":
         d: dict[str, Any] = {"mixer": SSM.mamba_descs(cfg)}
     elif spec.mixer == "rglru":
         d = {"mixer": R.rglru_descs(cfg)}
     elif spec.mixer == "mla":
         d = {"mixer": A.mla_descs(cfg)}
-    else:
+    elif spec.mixer == "attn":
         d = {"mixer": A.attn_descs(cfg)}
+    else:
+        raise ValueError(f"unknown mixer {spec.mixer!r}")
+    if spec.cross_attn:
+        d["cross"] = A.attn_descs(cfg)
     if spec.ffn == "dense":
         d["ffn"] = L.ffn_descs(cfg)
     elif spec.ffn == "moe":
@@ -80,17 +70,27 @@ def build_descriptors(cfg: ModelConfig):
                    reps)
         for pattern, reps in cfg.blocks
     ]
+    if cfg.enc_dec:
+        descs["encoder"] = {
+            "blocks": [stack_desc({"l0": layer_descs(cfg, ENC_SPEC)}, cfg.n_enc_layers)],
+            "final_norm": L.norm_descs(cfg),
+        }
     return descs
 
 
 def layer_cache_descs(cfg: ModelConfig, spec: LayerSpec, batch: int, seq: int):
     if spec.mixer == "mamba":
-        return {"mixer": SSM.mamba_cache_descs(cfg, batch)}
-    if spec.mixer == "rglru":
-        return {"mixer": R.rglru_cache_descs(cfg, batch)}
-    if spec.mixer == "mla":
-        return {"mixer": A.mla_cache_descs(cfg, batch, seq)}
-    return {"mixer": A.attn_cache_descs(cfg, batch, seq, spec.window)}
+        d = {"mixer": SSM.mamba_cache_descs(cfg, batch)}
+    elif spec.mixer == "rglru":
+        d = {"mixer": R.rglru_cache_descs(cfg, batch)}
+    elif spec.mixer == "mla":
+        d = {"mixer": A.mla_cache_descs(cfg, batch, seq)}
+    else:
+        d = {"mixer": A.attn_cache_descs(cfg, batch, seq, spec.window)}
+    if spec.cross_attn:
+        # the encoder output's keys and values, enc_frames long
+        d["cross"] = A.attn_cache_descs(cfg, batch, cfg.enc_frames, 0)
+    return d
 
 
 def build_cache_descriptors(cfg: ModelConfig, batch: int, seq: int):
@@ -105,11 +105,12 @@ def build_cache_descriptors(cfg: ModelConfig, batch: int, seq: int):
 # single layer and layer groups
 # ---------------------------------------------------------------------------
 
-def apply_layer(cfg: ModelConfig, spec: LayerSpec, p, x, *, mode, cache, pos_t):
+def apply_layer(cfg: ModelConfig, spec: LayerSpec, p, x, *, mode, cache, pos_t,
+                enc_out=None):
     """-> (x, new_cache, aux); new_cache is None in train mode; aux is the
     MoE layer's weighted balance loss (an f32 scalar tensor), 0.0 for a
-    layer without MoE."""
-    _check_ported(cfg, spec)
+    layer without MoE.  A `cross_attn` layer attends over `enc_out` (train,
+    prefill) or its cross cache (decode) after its mixer."""
     c_mix = cache.get("mixer") if cache else None
     aux = 0.0
     if spec.mixer == "mamba":
@@ -121,6 +122,12 @@ def apply_layer(cfg: ModelConfig, spec: LayerSpec, p, x, *, mode, cache, pos_t):
     else:
         x, nc = A.apply_attn(cfg, p["mixer"], x, window=spec.window,
                              causal=spec.causal, mode=mode, cache=c_mix, pos_t=pos_t)
+    new_cache = {"mixer": nc}
+    if spec.cross_attn:
+        x, new_cache["cross"] = A.apply_attn(
+            cfg, p["cross"], x, window=0, causal=False, mode=mode,
+            cache=cache.get("cross") if cache else None, pos_t=pos_t,
+            enc_out=enc_out, cross=True)
     if spec.ffn == "dense":
         x = L.apply_ffn(cfg, p["ffn"], x)
     elif spec.ffn == "moe":
@@ -131,7 +138,7 @@ def apply_layer(cfg: ModelConfig, spec: LayerSpec, p, x, *, mode, cache, pos_t):
             # boundary, as the reference does
             x = L.cotangent_cast(x, getattr(torch, cfg.cotangent_dtype))
         return x, None, aux
-    return x, {"mixer": nc}, aux
+    return x, new_cache, aux
 
 
 def _index(tree, r: int):
@@ -174,8 +181,9 @@ def _remat(cfg: ModelConfig, fn):
 
 
 def run_blocks(cfg: ModelConfig, blocks_params, x, *, mode, caches=None,
-               pos_t=None):
-    """Run all (pattern, repeats) groups.  Returns (x, new_caches, aux).
+               pos_t=None, enc_out=None, block_cfgs=None):
+    """Run all (pattern, repeats) groups of `block_cfgs` (`cfg.blocks` by
+    default; the encoder passes its own).  Returns (x, new_caches, aux).
 
     Train mode runs each repetition's body under `_remat`, returns no
     caches (a None per group) and the sum of every layer's aux (an f32
@@ -186,11 +194,12 @@ def run_blocks(cfg: ModelConfig, blocks_params, x, *, mode, caches=None,
     group's stacked tensor; attention writes its new k and v, the recurrent
     mixers their new state and conv tail) and returns them.
     """
+    block_cfgs = block_cfgs or cfg.blocks
     if mode == "train":
-        x, aux = _run_blocks_train(cfg, blocks_params, x)
-        return x, [None] * len(cfg.blocks), aux
+        x, aux = _run_blocks_train(cfg, blocks_params, x, enc_out, block_cfgs)
+        return x, [None] * len(block_cfgs), aux
     new_caches = []
-    for gi, (pattern, reps) in enumerate(cfg.blocks):
+    for gi, (pattern, reps) in enumerate(block_cfgs):
         per_rep = []
         for r in range(reps):
             p_r = _index(blocks_params[gi], r)
@@ -199,7 +208,8 @@ def run_blocks(cfg: ModelConfig, blocks_params, x, *, mode, caches=None,
             for i, spec in enumerate(pattern):
                 x, ncs[f"l{i}"], _ = apply_layer(
                     cfg, spec, p_r[f"l{i}"], x, mode=mode,
-                    cache=c_r[f"l{i}"] if c_r else None, pos_t=pos_t)
+                    cache=c_r[f"l{i}"] if c_r else None, pos_t=pos_t,
+                    enc_out=enc_out)
             per_rep.append(ncs)
         if mode == "decode":
             new_caches.append(caches[gi])
@@ -208,38 +218,61 @@ def run_blocks(cfg: ModelConfig, blocks_params, x, *, mode, caches=None,
     return x, new_caches, 0.0
 
 
-def _run_blocks_train(cfg: ModelConfig, blocks_params, x):
+def _run_blocks_train(cfg: ModelConfig, blocks_params, x, enc_out, block_cfgs):
     """-> (x, aux summed over every layer)."""
     cdt = L.compute_dtype(cfg)
     aux = torch.zeros((), device=x.device)
-    for gi, (pattern, reps) in enumerate(cfg.blocks):
+    for gi, (pattern, reps) in enumerate(block_cfgs):
         gp = blocks_params[gi]
         if cfg.bf16_param_stack:
             # one cast of the group's floating params per step: the layers
             # read, and their gradients flow through, the compute dtype
             gp = tree_map(lambda t: t.to(cdt) if t.is_floating_point() else t, gp)
 
-        def body(x, p_r, _pattern=pattern):
+        def body(x, p_r, enc_out, _pattern=pattern):
             aux = torch.zeros((), device=x.device)
             for i, spec in enumerate(_pattern):
                 x, _, a = apply_layer(cfg, spec, p_r[f"l{i}"], x, mode="train",
-                                      cache=None, pos_t=None)
+                                      cache=None, pos_t=None, enc_out=enc_out)
                 aux = aux + a
             return x, aux
 
         body = _remat(cfg, body)
         for p_r in _unstack(gp, reps):
-            x, a = body(x, p_r)
+            x, a = body(x, p_r, enc_out)
             aux = aux + a
     return x, aux
+
+
+# ---------------------------------------------------------------------------
+# encoder (whisper)
+# ---------------------------------------------------------------------------
+
+def run_encoder(cfg: ModelConfig, params, enc_feats):
+    """Frame embeddings (B, F, d) plus sinusoidal positions, through the
+    encoder's bidirectional layers in train mode (as the reference runs
+    them, in prefill too), then its final norm."""
+    cdt = L.compute_dtype(cfg)
+    F_ = enc_feats.shape[1]
+    x = enc_feats.to(cdt) + L.sinusoidal_pos(
+        cfg.d_model, torch.arange(F_, device=enc_feats.device))[None].to(cdt)
+    x, _, _ = run_blocks(cfg, params["encoder"]["blocks"], x, mode="train",
+                         block_cfgs=(((ENC_SPEC,), cfg.n_enc_layers),))
+    return L.apply_norm(cfg, params["encoder"]["final_norm"], x)
 
 
 # ---------------------------------------------------------------------------
 # entry points
 # ---------------------------------------------------------------------------
 
-def embed_tokens(cfg: ModelConfig, params, tokens):
-    return L.apply_embed(cfg, params, tokens)
+def embed_tokens(cfg: ModelConfig, params, tokens, pos_offset=0):
+    """Token embeddings; with sinusoidal positions, those of positions
+    pos_offset, pos_offset + 1, ... added."""
+    x = L.apply_embed(cfg, params, tokens)
+    if cfg.pos_embed == "sinusoidal":
+        pos = pos_offset + torch.arange(tokens.shape[1], device=tokens.device)
+        x = x + L.sinusoidal_pos(cfg.d_model, pos)[None].to(x.dtype)
+    return x
 
 
 def _logits(cfg: ModelConfig, params, x):
@@ -258,22 +291,25 @@ def chunked_ce_loss(cfg: ModelConfig, params, x, labels):
     `cfg.loss_chunk` (shrunk until it divides S).  Each chunk is
     checkpointed, so only one chunk's logits are ever resident: f32 logits
     from the table cast to the compute dtype (both operands then widened to
-    f32, which is the reference's bf16 product with an f32 result), the
-    padded vocab masked to -1e30, and the label's log-prob by gather (the
-    reference's one-hot sum picks the same number).  The sum over chunks is
-    divided by B x S."""
+    f32, which is the reference's bf16 product with an f32 result), rounded
+    to `cfg.logits_dtype`, the padded vocab masked to -1e30 in that dtype,
+    then widened to f32 for the log-sum-exp, and the label's log-prob by
+    gather (the reference's one-hot sum picks the same number).  The sum
+    over chunks is divided by B x S."""
     B, S, _ = x.shape
     table = L.unembed_table(cfg, params)
     V, Vp = cfg.vocab, cfg.vocab_padded
+    ldt = getattr(torch, cfg.logits_dtype)
     ch = min(cfg.loss_chunk, S)
     while S % ch:
         ch -= 1
 
     def chunk_fn(x_c, y_c):
-        logits = torch.matmul(x_c.float(), table.to(x_c.dtype).float().t())
+        logits = torch.matmul(x_c.float(), table.to(x_c.dtype).float().t()).to(ldt)
         if Vp > V:
             logits = torch.where(torch.arange(Vp, device=x.device) < V, logits,
-                                 A.NEG_INF)
+                                 torch.tensor(A.NEG_INF, dtype=ldt, device=x.device))
+        logits = logits.float()
         lse = torch.logsumexp(logits, dim=-1)
         ll = torch.gather(logits, -1, y_c[..., None].long())[..., 0]
         return (lse - ll).sum()
@@ -286,11 +322,13 @@ def chunked_ce_loss(cfg: ModelConfig, params, x, labels):
 
 
 def forward_train(cfg: ModelConfig, params, batch):
-    """batch: {"tokens", "labels"}, (B, S) integer tensors -> (loss,
-    {"ce", "aux"}): loss = ce + aux, with aux the MoE layers' weighted
-    balance loss summed over the layers (0 without MoE)."""
+    """batch: {"tokens", "labels"}, (B, S) integer tensors, and for an
+    encoder-decoder "enc_feats" (B, F, d) -> (loss, {"ce", "aux"}): loss =
+    ce + aux, with aux the MoE layers' weighted balance loss summed over the
+    layers (0 without MoE)."""
+    enc_out = run_encoder(cfg, params, batch["enc_feats"]) if cfg.enc_dec else None
     x = embed_tokens(cfg, params, batch["tokens"])
-    x, _, aux = run_blocks(cfg, params["blocks"], x, mode="train")
+    x, _, aux = run_blocks(cfg, params["blocks"], x, mode="train", enc_out=enc_out)
     x = L.apply_norm(cfg, params["final_norm"], x)
     if cfg.cotangent_dtype:
         x = L.cotangent_cast(x, getattr(torch, cfg.cotangent_dtype))
@@ -298,17 +336,23 @@ def forward_train(cfg: ModelConfig, params, batch):
     return ce + aux, {"ce": ce, "aux": aux}
 
 
-def prefill(cfg: ModelConfig, params, tokens):
-    """-> (last_token_logits, caches)."""
+def prefill(cfg: ModelConfig, params, tokens, enc_feats=None):
+    """-> (last_token_logits, caches).  An encoder-decoder takes its frame
+    embeddings `enc_feats` (B, F, d); its encoder runs without autograd (so
+    that its train-mode layers may take the forward-only kernel)."""
+    enc_out = None
+    if cfg.enc_dec:
+        with torch.no_grad():
+            enc_out = run_encoder(cfg, params, enc_feats)
     x = embed_tokens(cfg, params, tokens)
-    x, caches, _ = run_blocks(cfg, params["blocks"], x, mode="prefill")
+    x, caches, _ = run_blocks(cfg, params["blocks"], x, mode="prefill", enc_out=enc_out)
     x = L.apply_norm(cfg, params["final_norm"], x)
     return _logits(cfg, params, x[:, -1:]), caches
 
 
 def decode_step(cfg: ModelConfig, params, caches, tokens, pos_t):
     """tokens: (B, 1); pos_t: int -> (logits, caches), caches updated in place."""
-    x = embed_tokens(cfg, params, tokens)
+    x = embed_tokens(cfg, params, tokens, pos_offset=pos_t)
     x, new_caches, _ = run_blocks(cfg, params["blocks"], x, mode="decode",
                                   caches=caches, pos_t=pos_t)
     x = L.apply_norm(cfg, params["final_norm"], x)
@@ -348,8 +392,8 @@ class Transformer(nn.Module):
         self.params = params
 
     @torch.no_grad()
-    def prefill(self, tokens):
-        return prefill(self.cfg, self.params, tokens)
+    def prefill(self, tokens, enc_feats=None):
+        return prefill(self.cfg, self.params, tokens, enc_feats)
 
     @torch.no_grad()
     def decode_step(self, caches, tokens, pos_t):

@@ -6,12 +6,13 @@ the kernels' own device times), the share of the wall time the card was
 idle, kernel launches, and the kernels that take the most device time.
 The cell is `chip_smoke.py`'s: a full-width model (`--arch`, qwen2-1.5b
 by default; `--max-repeats N` caps each layer group's repeats, as
-`serve.py`'s flag does), bf16, batch 4 x 2048 prompt tokens; decode is
-profiled over 8 steps.  Prints one JSON line per phase.  Needs a CUDA card.
+`serve.py`'s flag does), bf16, batch 4 x 2048 prompt tokens (384 and
+the 1500 encoder frames for whisper-large-v3, whose prefill includes its
+encoder); decode is profiled over 8 steps.  Prints one JSON line per
+phase.  Needs a CUDA card.
 
-Run:  PYTHONPATH=src python -m repro_torch.profile_serve [--arch qwen2-1.5b |
-          falcon-mamba-7b | recurrentgemma-9b | granite-moe-3b-a800m |
-          deepseek-v2-236b] [--max-repeats N]
+Run:  PYTHONPATH=src python -m repro_torch.profile_serve [--arch <one of
+          registry.ARCH_NAMES>] [--max-repeats N]
 """
 from __future__ import annotations
 
@@ -31,7 +32,7 @@ from repro_torch.models.layers import compute_dtype
 from repro_torch.models.params import init_tree
 from repro_torch.train.steps import make_serve_step
 
-BATCH, PROMPT, STEPS = 4, 2048, 8
+BATCH, STEPS = 4, 8
 
 
 def _wall_ms(fn, n=1) -> float:
@@ -71,15 +72,17 @@ def main(argv=None):
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     params = init_tree(T.build_descriptors(cfg), gen, dev, dtype=compute_dtype(cfg))
-    B, P = BATCH, PROMPT
+    B, P = BATCH, serve.default_prompt_len(cfg)
     prompts = torch.randint(0, cfg.vocab, (B, P), generator=gen, device=dev)
+    enc = (torch.randn((B, cfg.enc_frames, cfg.d_model), generator=gen, device=dev)
+           if cfg.enc_dec else None)
     serve.serve(cfg, batch=B, prompt_len=P, new_tokens=2, device=dev,
-                params=params, prompts=prompts)          # warm-up
+                params=params, prompts=prompts, enc_feats=enc)    # warm-up
 
     with torch.no_grad():
-        prefill = lambda: T.prefill(cfg, params, prompts)  # noqa: E731
+        prefill = lambda: T.prefill(cfg, params, prompts, enc)  # noqa: E731
         out = {"prefill": _breakdown(prefill, 1, _wall_ms(prefill, 3))}
-        logits, caches = T.prefill(cfg, params, prompts)
+        logits, caches = prefill()
         caches = serve.grow_caches(caches, P, P + 2 * STEPS)
         step = make_serve_step(cfg)
         state = {"tok": torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None], "pos": P}

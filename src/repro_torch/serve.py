@@ -2,23 +2,28 @@
 
 The port's counterpart of `examples/serve_lm.py`, at full width by default,
 with bf16 compute and prefill through the CUDA kernels (`use_pallas=True`):
-flash attention for qwen2-1.5b, granite-moe-3b-a800m and recurrentgemma-9b's
-local layers, the selective scan for falcon-mamba-7b, the RG-LRU scan for
+flash attention in every GQA attention layer (whisper-large-v3's encoder
+and decoder self-attention included; cross-attention stays plain, as in
+the reference), the selective scan for falcon-mamba-7b, the RG-LRU scan for
 recurrentgemma-9b (deepseek-v2-236b's MLA reaches no kernel, as in the
 reference).  The weights are random, drawn from a seeded `torch.Generator`
 on the device; they are stored once in the compute dtype, which rounds
 exactly as the JAX package's per-use cast of f32 weights does (the few
-leaves that package reads in f32 stay f32).
+leaves that package reads in f32 stay f32).  An encoder-decoder
+(whisper-large-v3) also draws its (batch, enc_frames, d_model) f32 frame
+embeddings from that generator, as `examples/serve_lm.py` draws them; its
+prompt defaults to 384 tokens, so that with 64 new ones the decoder sees
+the published model's 448 positions.
 
 `--max-repeats N` caps every layer group's repeats at N, widths unchanged.
 A config whose weights alone do not fit in the card's memory raises before
 they are drawn: deepseek-v2-236b needs 471 GB in bf16, and
 `--max-repeats 4` (1 dense + 4 MoE layers, 34.6 GB) fits one H100.
 
-Run:  PYTHONPATH=src python -m repro_torch.serve [--arch qwen2-1.5b |
-          falcon-mamba-7b | recurrentgemma-9b | granite-moe-3b-a800m |
-          deepseek-v2-236b] [--max-repeats N] [--batch 4] [--prompt-len 2048]
-          [--new-tokens 64] [--device cuda]
+Run:  PYTHONPATH=src python -m repro_torch.serve [--arch <one of
+          registry.ARCH_NAMES>] [--max-repeats N] [--batch 4]
+          [--prompt-len 2048, 384 for whisper-large-v3] [--new-tokens 64]
+          [--device cuda]
 """
 from __future__ import annotations
 
@@ -41,6 +46,11 @@ from repro_torch.train.steps import make_prefill_step, make_serve_step
 
 
 ATTN_CACHE_KEYS = ("k", "v", "pos", "c_kv", "k_rope")
+PROMPT_LEN, ENC_DEC_PROMPT_LEN = 2048, 384
+
+
+def default_prompt_len(cfg: ModelConfig) -> int:
+    return ENC_DEC_PROMPT_LEN if cfg.enc_dec else PROMPT_LEN
 
 
 def weight_bytes(cfg: ModelConfig) -> int:
@@ -71,20 +81,21 @@ def served_config(arch: str, max_repeats: int | None = None,
 
 def grow_caches(caches, cur_len: int, total: int):
     """Pad the sequence dim (dim 2 of the stacked (reps, B, T, ...) caches)
-    of the attention caches (`k`, `v`, ring positions `pos`, MLA's latent
-    `c_kv` and `k_rope`) from the prompt length to the full generation
-    length; ring position slots are padded
-    with the invalid marker -1.  A ring shorter than the prompt, and the
-    fixed-size recurrent states and conv tails, stay as they are, whatever
-    their widths."""
+    of the self-attention caches (each layer's `mixer`: `k`, `v`, ring
+    positions `pos`, MLA's latent `c_kv` and `k_rope`) from the prompt
+    length to the full generation length; ring position slots are padded
+    with the invalid marker -1.  A ring shorter than the prompt, the
+    fixed-size recurrent states and conv tails, and the cross-attention
+    caches (the encoder's keys, enc_frames long) stay as they are, whatever
+    their lengths."""
 
-    def grow(tree):
-        if isinstance(tree, dict):
-            return {k: pad(v) if k in ATTN_CACHE_KEYS else grow(v)
-                    for k, v in tree.items()}
-        if isinstance(tree, (list, tuple)):
-            return type(tree)(grow(t) for t in tree)
-        return tree
+    def grow_layer(layer):          # {"mixer": {...}, and "cross": {...}}
+        mixer = {k: pad(v) if k in ATTN_CACHE_KEYS else v
+                 for k, v in layer["mixer"].items()}
+        return {**layer, "mixer": mixer}
+
+    def grow(group):                # {"l0": layer, "l1": layer, ...}
+        return {name: grow_layer(layer) for name, layer in group.items()}
 
     def pad(x):
         if x.shape[2] != cur_len:
@@ -92,12 +103,14 @@ def grow_caches(caches, cur_len: int, total: int):
         widths = [0, 0] * (x.dim() - 3) + [0, total - cur_len]
         return F.pad(x, widths, value=-1 if x.dtype == torch.int32 else 0)
 
-    return grow(caches)
+    return [grow(g) for g in caches]
 
 
 def serve(cfg: ModelConfig, *, batch: int, prompt_len: int, new_tokens: int,
-          device="cuda", params=None, prompts=None) -> dict:
+          device="cuda", params=None, prompts=None, enc_feats=None) -> dict:
     """Prefill `batch` prompts of `prompt_len` tokens, decode `new_tokens`.
+    An encoder-decoder takes `enc_feats` (batch, enc_frames, d_model), drawn
+    after the weights and prompts when not given.
 
     Returns the generated tokens (batch, new_tokens) and the timings:
     prefill ms, decode ms per step, and tokens/s (generated tokens over the
@@ -111,13 +124,19 @@ def serve(cfg: ModelConfig, *, batch: int, prompt_len: int, new_tokens: int,
     if prompts is None:
         prompts = torch.randint(0, cfg.vocab, (batch, prompt_len),
                                 generator=gen, device=dev)
+    inputs = {"tokens": prompts}
+    if cfg.enc_dec:
+        if enc_feats is None:
+            enc_feats = torch.randn((batch, cfg.enc_frames, cfg.d_model),
+                                    generator=gen, device=dev)
+        inputs["enc_feats"] = enc_feats
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     total = prompt_len + new_tokens
 
     synchronize(dev)
     t0 = time.perf_counter()
-    logits, caches = make_prefill_step(cfg)(params, {"tokens": prompts})
+    logits, caches = make_prefill_step(cfg)(params, inputs)
     caches = grow_caches(caches, prompt_len, total)
     tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
     synchronize(dev)
@@ -147,15 +166,17 @@ def main(argv=None):
     ap.add_argument("--max-repeats", type=int, default=None,
                     help="cap every layer group's repeats (widths stay)")
     ap.add_argument("--batch", type=int, default=4)
-    ap.add_argument("--prompt-len", type=int, default=2048)
+    ap.add_argument("--prompt-len", type=int, default=None,
+                    help=f"default {PROMPT_LEN}, {ENC_DEC_PROMPT_LEN} for an encoder-decoder")
     ap.add_argument("--new-tokens", type=int, default=64)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
     cfg = served_config(args.arch, args.max_repeats, device_memory(dev))
-    res = serve(cfg, batch=args.batch, prompt_len=args.prompt_len,
+    prompt_len = args.prompt_len or default_prompt_len(cfg)
+    res = serve(cfg, batch=args.batch, prompt_len=prompt_len,
                 new_tokens=args.new_tokens, device=dev)
-    print(json.dumps({"arch": cfg.name, "n_layers": cfg.n_layers,
+    print(json.dumps({"arch": cfg.name, "n_layers": cfg.n_layers, "prompt_len": prompt_len,
                       **{k: v for k, v in res.items() if k != "tokens"}}))
     print("generated token ids (first sequence):", res["tokens"][0, :12].tolist())
     return res

@@ -14,7 +14,8 @@ def make_train_step(cfg: ModelConfig, hp: adamw.Hyper):
     opt_state, metrics), with `params` and `opt_state` updated in place.
 
     batch: {"tokens", "labels"}, (B, S) integer tensors on the params'
-    device; step: int.  With hp.microbatches > 1 the batch is split along
+    device, and for an encoder-decoder "enc_feats" (B, F, d) f32; step:
+    int.  With hp.microbatches > 1 every entry of the batch is split along
     dim 0 into that many microbatches, run one after the other; their f32
     gradients and losses are summed and divided by the count, and their
     metrics averaged.  Then the gradients are clipped to hp.clip in global
@@ -69,7 +70,7 @@ def make_train_step(cfg: ModelConfig, hp: adamw.Hyper):
 def make_prefill_step(cfg: ModelConfig):
     @torch.no_grad()
     def prefill_step(params, batch):
-        return T.prefill(cfg, params, batch["tokens"])
+        return T.prefill(cfg, params, batch["tokens"], batch.get("enc_feats"))
 
     return prefill_step
 

@@ -108,6 +108,16 @@ def test_wrapper_rejects_bad_shapes_and_devices():
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+def test_kernel_takes_head_dim_160(dtype):
+    """stablelm-12b runs at head_dim 5120 / 32 = 160: the wrapper's checks
+    pass for it on the main path's views, in both dtypes."""
+    def mk(h):
+        return torch.zeros((1, 40, h, 160), dtype=getattr(torch, dtype)).transpose(1, 2)
+    q, k, v = mk(32), mk(8), mk(8)
+    check_kernel_inputs(q, k, v, torch.empty_like(q))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_kernel_takes_head_dim_256(dtype):
     """recurrentgemma-9b's local layers run at head_dim 256: the checks the
     wrapper makes before a launch pass for it, in both dtypes, on the main
@@ -213,7 +223,8 @@ def _check_cuda(cuda, B, Hq, Hkv, S, D, causal, window, dtype, T=None, strided=F
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("D,S", [(64, 128), (64, 256), (64, 384),     # kv tiles of 128 rows
-                                 (256, 64), (256, 128), (256, 192)])  # of 64 rows at D 256
+                                 (160, 64), (160, 128), (160, 192),   # of 64 rows from D 160 up
+                                 (256, 64), (256, 128), (256, 192)])
 @pytest.mark.parametrize("causal,window", MASKS)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_cuda_kernel_one_two_three_kv_tiles(cuda, D, S, causal, window, dtype):
@@ -222,7 +233,7 @@ def test_cuda_kernel_one_two_three_kv_tiles(cuda, D, S, causal, window, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("S,T", [(129, 257), (300, 300), (77, 200), (250, 250)])
-@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("D", [128, 160, 256])
 @pytest.mark.parametrize("causal,window", MASKS)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_cuda_kernel_lengths_off_the_tiles(cuda, S, T, D, causal, window, dtype):
@@ -231,7 +242,7 @@ def test_cuda_kernel_lengths_off_the_tiles(cuda, S, T, D, causal, window, dtype)
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("window", [40, 100, 129])
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 128, 160, 256])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_cuda_kernel_window_starts_mid_tile(cuda, window, D, causal, dtype):
@@ -239,7 +250,7 @@ def test_cuda_kernel_window_starts_mid_tile(cuda, window, D, causal, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 160, 256])
 @pytest.mark.parametrize("causal,window", MASKS)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_cuda_kernel_every_head_dim(cuda, D, causal, window, dtype):
@@ -254,3 +265,28 @@ def test_cuda_kernel_qwen2_serving_shape(cuda, dtype):
     """qwen2-1.5b's prefill: B 4, Hq 12, Hkv 2, S 2048, D 128, causal, on
     the strided views the main path hands the kernel."""
     _check_cuda(cuda, 4, 12, 2, 2048, 128, True, 0, dtype, strided=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,window", MASKS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_kernel_stablelm_serving_shape(cuda, causal, window, dtype):
+    """stablelm-12b's prefill at head_dim 160: B 4, Hq 32, Hkv 8, S 2048,
+    on the strided views the main path hands the kernel."""
+    _check_cuda(cuda, 4, 32, 8, 2048, 160, causal, window, dtype, strided=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_kernel_whisper_encoder_shape(cuda, dtype):
+    """whisper-large-v3's encoder: bidirectional at 1500 frames, a length
+    off the tiles, B 4, 20 heads, head_dim 64."""
+    _check_cuda(cuda, 4, 20, 20, 1500, 64, False, 0, dtype, strided=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_kernel_gemma3_local_shape(cuda, dtype):
+    """gemma3-27b's local layers: window 1024 shorter than the 2048-token
+    prompt, B 4, Hq 32, Hkv 16, head_dim 128."""
+    _check_cuda(cuda, 4, 32, 16, 2048, 128, True, 1024, dtype, strided=True)

@@ -51,7 +51,9 @@ def test_configs_match_reference(smoke):
     get_j = jreg.smoke_config if smoke else jreg.get_config
     get_t = treg.smoke_config if smoke else treg.get_config
     assert treg.ARCH_NAMES == ["qwen2-1.5b", "falcon-mamba-7b", "recurrentgemma-9b",
-                               "granite-moe-3b-a800m", "deepseek-v2-236b"]
+                               "granite-moe-3b-a800m", "deepseek-v2-236b", "qwen1.5-0.5b",
+                               "stablelm-12b", "gemma3-27b", "qwen2-vl-7b", "whisper-large-v3"]
+    assert sorted(treg.ARCH_NAMES) == sorted(jreg.ARCH_NAMES)
     for arch in treg.ARCH_NAMES:
         jc, tc = get_j(arch), get_t(arch)
         assert dataclasses.asdict(jc) == dataclasses.asdict(tc), arch
@@ -61,8 +63,11 @@ def test_configs_match_reference(smoke):
 
 
 def test_unported_arch_raises_and_names_roadmap():
-    with pytest.raises(KeyError, match="ROADMAP.md"):
-        treg.get_config("whisper-large-v3")
+    """Every arch of the reference is ported; a name neither package knows
+    raises KeyError, as the reference's registry does."""
+    for reg in (jreg, treg):
+        with pytest.raises(KeyError, match="unknown arch"):
+            reg.get_config("whisper-tiny")
 
 
 def test_param_tree_layout_matches_reference():
@@ -118,6 +123,13 @@ def test_embed_and_unembed(tie, scale):
 
 
 def test_mrope_is_not_ported():
-    _, tc = _cfgs(mrope_sections=(2, 3, 3))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TL.positions_for(tc, torch.zeros(1, 2, 1, 16), torch.arange(2)[None])
+    """M-RoPE is ported: qwen2-vl-7b's sections (16, 24, 24) at head_dim
+    128, through `positions_for`, with distinct (B, 3, S) position ids and
+    with text ids (B, S)."""
+    jc = jreg.get_config("qwen2-vl-7b")
+    tc = treg.get_config("qwen2-vl-7b")
+    x = _x((2, 9, 2, 128))
+    rng = np.random.default_rng(5)
+    for pos in (rng.integers(0, 4096, (2, 3, 9)), np.arange(9)[None].repeat(2, 0) + 100):
+        _close(TL.positions_for(tc, torch.from_numpy(x), torch.from_numpy(pos)),
+               JL.positions_for(jc, x, jnp.asarray(pos)), rtol=2e-5, atol=2e-5)

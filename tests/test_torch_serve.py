@@ -179,16 +179,24 @@ def test_transformer_stores_drawn_weights_in_the_compute_dtype():
 
 
 def test_unported_layer_kinds_raise():
-    """MLA and MoE are ported; cross-attention, the encoder-decoder and
-    sinusoidal positions still raise and name ROADMAP.md."""
-    _, tc = _cfgs(False)
+    """Every layer kind is ported: MLA and MoE, and the cross-attention,
+    encoder-decoder and sinusoidal configs build the reference's descriptor
+    tree (the same paths and shapes)."""
+    jc, tc = _cfgs(False)
     for arch in ("granite-moe-3b-a800m", "deepseek-v2-236b"):
         assert TT.build_descriptors(treg.smoke_config(arch))
-    for cfg in (dataclasses.replace(tc, blocks=(((LayerSpec(cross_attn=True),), 1),)),
-                dataclasses.replace(tc, enc_dec=True),
-                dataclasses.replace(tc, pos_embed="sinusoidal")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            TT.build_descriptors(cfg)
+    cross = (((LayerSpec(cross_attn=True),), 1),)
+    for kw in (dict(blocks=cross), dict(enc_dec=True, blocks=cross),
+               dict(pos_embed="sinusoidal")):
+        jt = JT.build_descriptors(dataclasses.replace(jc, **kw))
+        tt = TT.build_descriptors(dataclasses.replace(tc, **kw))
+        j_paths = [(jax.tree_util.keystr(path), d.shape)
+                   for path, d in jax.tree_util.tree_leaves_with_path(
+                       jt, is_leaf=lambda x: hasattr(x, "axes"))]
+        t_leaves = tree_leaves(tt, is_leaf=is_desc)
+        assert [shape for _, shape in j_paths] == [d.shape for d in t_leaves]
+        keys = "".join(p for p, _ in j_paths)
+        assert ("cross" in keys) == ("blocks" in kw) and ("encoder" in keys) == ("enc_dec" in kw)
 
 
 def _imported_modules(path):
