@@ -34,6 +34,23 @@ its last line):
      its 1024-token window does not divide), and the bf16 logits against
      the f32 model's where that runs at full depth, each model freed
      before the next;
+  4a. device_tier: the paper's scheduler on the card, on the host's clock:
+     Workflow/Engine -> FalkonProvider -> FalkonService ->
+     DeviceExecutorPool(device="cuda") -> `torch.func.vmap` bundles.  A
+     MolDyn-sized stream of 20,480 `small_task`s (x (16, 192) f32, one
+     shared w (192, 192)) at max_bundle 1, 4, 16, 64 and 256: wall s,
+     tasks/s, device share, bundles and fused tasks for each; every task
+     run and (above bundle 1) fused, every output finite, 256 sampled
+     outputs against the same tasks run one at a time on the CPU; the
+     stream again on two dispatchers (two threads, two CUDA streams)
+     against one; 4,096 `attention_task`s (q, k, v (8, 256, 64) f32) at
+     bundle 256, 64 sampled against the CPU; the predictor's seconds per
+     task beside the measured ones; the reference benchmark's two targets
+     (>= 5x tasks/s at bundle 256 over bundle 1, >= 80% of wall inside
+     device execution at the best bundle) reported, not held; last, the
+     card's busy seconds per task at bundles 1 and 256 (`torch.profiler`)
+     and so its busy share; and no kernel launched, as the reference's
+     device tier reaches no Pallas kernel;
   5. time each kernel at its serving shape beside its bound, its plain
      version and, where one PyTorch call computes the same function, that
      call; for the kernels that take exponentials (flash attention, the
@@ -56,6 +73,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -113,6 +131,18 @@ GEMMA3_RAGGED_PROMPT = 1500     # 1500 mod 1024 = 476: the ring repair's case
 MAMBA_SHAPE = dict(B=BATCH, S=PROMPT, D=8192, N=16)               # falcon-mamba-7b, dt_rank 256
 MAMBA_DT_RANK = 256
 RGLRU_SHAPE = dict(B=BATCH, S=PROMPT, W=4096)                     # recurrentgemma-9b, f32 a and b
+# the device tier: the paper's 20,497 MolDyn jobs (benchmarks/million_tasks.py:4)
+# rounded to 80 bundles of 256
+TIER_TASKS, TIER_SAMPLES = 20480, 256
+TIER_ATTN_TASKS, TIER_ATTN_SHAPE, TIER_ATTN_SAMPLES = 4096, (8, 256, 64), 64
+# tasks of the profiled runs that read the card's busy time per task, by bundle
+# size (bundle 1 launches ~130 kernels a task: its trace is kept short); they
+# run last, since launches stay slower for a while after the profiler stops
+TIER_PROFILED = {1: 512, 256: TIER_TASKS}
+# per task against bundle, f32: a bundle broadcasts the shared weight, so its
+# products may sum in another order than one task's (the reference's own
+# per-task-vs-bundle test misses rtol 1e-5 by that: 8.3e-5 relative)
+TIER_TOL = dict(rtol=1e-4, atol=1e-5)
 # tests/test_kernels.py's tolerances
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}                 # flash attention, RG-LRU scan
 MAMBA_TOL = {torch.float32: 5e-5, torch.bfloat16: 5e-2}
@@ -632,6 +662,124 @@ def phase_serve(arch, seed) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 4a. the device tier: the paper's scheduler on the card
+# ---------------------------------------------------------------------------
+
+def tier_outputs(row) -> torch.Tensor:
+    """A sweep row's outputs in task order; every path of the pool, bundle or
+    singleton, brings them back to the host."""
+    if any(o.device.type != "cpu" for o in row["outputs"]):
+        raise AssertionError(f"device tier, bundle {row['bundle']}: outputs left on the card")
+    return torch.stack(row["outputs"])
+
+
+def hold_tier(what, got, exp) -> float:
+    """Max abs error of `got` against `exp`; raises past `TIER_TOL`."""
+    err = (got - exp).abs().max().item()
+    if not torch.allclose(got, exp, **TIER_TOL):
+        raise AssertionError(f"device tier: {what} disagrees, max abs err {err}")
+    return err
+
+
+def card_busy_s_per_task(bench, args, bundle) -> float:
+    """The card's busy seconds per task (kernels and copies, from
+    `torch.profiler`) over a run of `args` at `bundle`, warm-up included."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        r = bench.measure(bench.small_task, args, bundle, "cuda", reps=1)
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e6
+    return busy / (r["tasks_run"] + min(len(args), bench.WARM))
+
+
+def phase_device_tier(seed):
+    """The paper's scheduler driving the card (Workflow/Engine -> Falkon ->
+    DeviceExecutorPool), through `repro_torch.benchmarks.device_batching`."""
+    from repro_torch.benchmarks import device_batching as bench
+    from repro_torch.kernels.ops import attention_task
+    from repro_torch.launch.op_cost import DeviceModel, DurationPredictor
+
+    ws = wrappers()
+    for w in ws.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    pred = DurationPredictor(DeviceModel(peak_flops=PEAK_F32_FLOPS, mem_bw=PEAK_BYTES))
+    sweep = bench.run(TIER_TASKS, "cuda", reps=1, seed=seed, predictor=pred)
+    xs, w = bench.make_inputs(TIER_TASKS, seed)     # the sweep's inputs, drawn again
+    pick = np.sort(np.random.default_rng(seed).choice(TIER_TASKS, TIER_SAMPLES,
+                                                      replace=False))
+    on_cpu = torch.stack([bench.small_task(torch.from_numpy(xs[i]), torch.from_numpy(w))
+                          for i in pick])
+    rows = {}
+    for r in sweep["sweep"]:
+        b = r["bundle"]
+        out = tier_outputs(r)
+        fused_expected = 0 if b == 1 else TIER_TASKS
+        if r["tasks_run"] != TIER_TASKS or r["fused_tasks"] != fused_expected:
+            raise AssertionError(f"device tier, bundle {b}: {r['tasks_run']} tasks run, "
+                                 f"{r['fused_tasks']} fused")
+        if out.shape != (TIER_TASKS, bench.ROWS) or not torch.isfinite(out).all():
+            raise AssertionError(f"device tier, bundle {b}: outputs not finite or shaped "
+                                 f"{tuple(out.shape)}")
+        err = hold_tier(f"bundle {b} vs per task on the CPU", out[torch.from_numpy(pick)], on_cpu)
+        rows[b] = dict(r, host_outputs=out)
+        log("device_tier", bundle=b, wall_s=r["wall_s"], tasks_per_s=r["tasks_per_s"],
+            device_frac=r["device_frac"], bundles_run=r["bundles_run"],
+            fused_tasks=r["fused_tasks"], tasks_run=r["tasks_run"],
+            run_s_mean=r["run_s_mean"], max_abs_err_vs_cpu=err, **TIER_TOL)
+    top = max(rows)
+    args = [[xs[i], w] for i in range(TIER_TASKS)]
+    two = bench.measure(bench.small_task, args, top, "cuda", reps=1, dispatchers=2)
+    if two["tasks_run"] != TIER_TASKS or two["fused_tasks"] != TIER_TASKS:
+        raise AssertionError(f"device tier, two dispatchers: {two['tasks_run']} run, "
+                             f"{two['fused_tasks']} fused")
+    err = hold_tier("two dispatchers vs one", tier_outputs(two), rows[top]["host_outputs"])
+    log("device_tier_two_dispatchers", bundle=top, wall_s=two["wall_s"],
+        tasks_per_s=two["tasks_per_s"], device_frac=two["device_frac"],
+        bundles_run=two["bundles_run"], max_abs_err_vs_one=err)
+
+    rng = np.random.default_rng(seed + 1)
+    qkv = [rng.standard_normal((TIER_ATTN_TASKS, *TIER_ATTN_SHAPE), dtype=np.float32)
+           for _ in range(3)]
+    attn_args = [[a[i] for a in qkv] for i in range(TIER_ATTN_TASKS)]
+    attn = bench.measure(attention_task, attn_args, top, "cuda", reps=1)
+    if attn["tasks_run"] != TIER_ATTN_TASKS or attn["fused_tasks"] != TIER_ATTN_TASKS:
+        raise AssertionError(f"device tier, attention: {attn['tasks_run']} run, "
+                             f"{attn['fused_tasks']} fused")
+    out = tier_outputs(attn)
+    apick = np.sort(rng.choice(TIER_ATTN_TASKS, TIER_ATTN_SAMPLES, replace=False))
+    exp = torch.stack([attention_task(*[torch.from_numpy(a[i]) for a in qkv]) for i in apick])
+    if not torch.isfinite(out).all():
+        raise AssertionError("device tier, attention: outputs not finite")
+    err = hold_tier("attention bundle vs per task on the CPU", out[torch.from_numpy(apick)], exp)
+    log("device_tier_attention", tasks=TIER_ATTN_TASKS, shape=TIER_ATTN_SHAPE, bundle=top,
+        wall_s=attn["wall_s"], tasks_per_s=attn["tasks_per_s"],
+        device_frac=attn["device_frac"], bundles_run=attn["bundles_run"],
+        run_s_mean=attn["run_s_mean"], max_abs_err_vs_cpu=err, **TIER_TOL)
+    del qkv, attn_args, attn, out
+
+    cost = pred.predict_cost(bench.small_task, args[0])
+    log("device_tier_predictor", predicted_task_s=sweep["predicted_task_s"],
+        flops=cost.flops, bytes=cost.bytes,
+        measured_run_s_mean={b: rows[b]["run_s_mean"] for b in (1, top)})
+    log("device_tier_targets", speedup=sweep["speedup_largest_vs_single"],
+        speedup_target=bench.SPEEDUP_TARGET, best_bundle=sweep["best_bundle"],
+        best_device_frac=sweep["best_bundled_device_frac"],
+        device_frac_target=bench.DEVICE_FRAC_TARGET, held=sweep["targets_held"])
+    for b, n in TIER_PROFILED.items():
+        busy = card_busy_s_per_task(bench, args[:n], b)
+        log("device_tier_card", bundle=b, profiled_tasks=n, card_busy_s_per_task=busy,
+            card_busy_share=busy * rows[b]["tasks_per_s"])
+    launched = {name: w.launches for name, w in ws.items()}
+    if any(launched.values()):
+        raise AssertionError(f"the device tier launched a kernel: {launched}")
+    log("device_tier_done", launches=launched, seconds=time.perf_counter() - t0)
+
+
+# ---------------------------------------------------------------------------
 # 5. kernel time at the serving shapes
 # ---------------------------------------------------------------------------
 
@@ -853,6 +1001,7 @@ def main():
     if any(train_launches.values()):
         raise AssertionError(f"a kernel was launched while training: {train_launches}")
     launches = {arch: phase_serve(arch, seed) for arch in ARCHS}
+    phase_device_tier(seed)
     kernels = phase_kernel_time(gen, launches, worst)
     log("done", seconds=time.perf_counter() - t0)
     print(json.dumps({"kernels": kernels}))

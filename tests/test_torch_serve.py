@@ -210,6 +210,8 @@ def _imported_modules(path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
+    # the scheduling stack, the predictor and the benchmark are in the walk
+    assert {"core", "launch", "benchmarks"} <= {f.parent.name for f in files}
     bad = [(f.relative_to(REPO), m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, bad
