@@ -51,6 +51,27 @@ its last line):
      card's busy seconds per task at bundles 1 and 256 (`torch.profiler`)
      and so its busy share; and no kernel launched, as the reference's
      device tier reaches no Pallas kernel;
+  4b. trainer: full-width qwen2-1.5b through the engine-driven `Trainer`
+     (every step, data stage, eval and checkpoint an engine task; bf16
+     compute on an f32 master copy, sequence 4096, batch 2): run A takes
+     steps 0-2 with two injected step faults, retried, and checkpoints the
+     18.5 GB state at step 2, logging each leaf's float64 sum on the card;
+     run B, a fresh Trainer on the same workdir, restores it and takes only
+     steps 2 and 3.  Held: B's restored sums equal A's leaf by leaf, B's
+     step-2 loss within 1e-4 (relative) of A's, finite losses, peak memory
+     below 80 GB, and room on the disk for a checkpoint before one is
+     written; logged: checkpoint and restore seconds and GB/s, the median
+     step through the engine beside a bare `train()` step at the same
+     batch;
+  4c. reliability, with CUDA initialised in this process: the port's
+     kill-and-resume benchmark at the reference's CI size (3,000 tasks,
+     SIGKILL at 50%) under its own assertions, and a 2-shard
+     `ProcessFederation` (spawned shard processes, sleep bodies) whose
+     values and placement equal an in-process `FederatedEngine` under
+     `SimClock`;
+  4d. vmap_clustering: the port of the reference's clustering benchmark on
+     the card under its own assertions (every task fused, >= 1.5x), fused
+     outputs against per-task ones; no kernel is launched in 4b-4d;
   5. time each kernel at its serving shape beside its bound, its plain
      version and, where one PyTorch call computes the same function, that
      call; for the kernels that take exponentials (flash attention, the
@@ -65,8 +86,10 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -139,6 +162,12 @@ TIER_ATTN_TASKS, TIER_ATTN_SHAPE, TIER_ATTN_SAMPLES = 4096, (8, 256, 64), 64
 # size (bundle 1 launches ~130 kernels a task: its trace is kept short); they
 # run last, since launches stay slower for a while after the profiler stops
 TIER_PROFILED = {1: 512, 256: TIER_TASKS}
+# the trainer phase: full-width qwen2-1.5b at global batch 2 in 1 microbatch
+TRAINER_ARCH, TRAINER_BATCH = "qwen2-1.5b", 2
+# the reliability phase: the reference's CI sizes (benchmarks/kill_resume.py,
+# benchmarks/real_federation.py)
+KILL_RESUME_TASKS = 3000
+FED_SHARDS, FED_TASKS, FED_BODY_S, FED_CEILING = 2, 600, 0.001, 100.0
 # per task against bundle, f32: a bundle broadcasts the shared weight, so its
 # products may sum in another order than one task's (the reference's own
 # per-task-vs-bundle test misses rtol 1e-5 by that: 8.3e-5 relative)
@@ -780,6 +809,241 @@ def phase_device_tier(seed):
 
 
 # ---------------------------------------------------------------------------
+# 4b. trainer: the engine-driven Trainer with checkpoint, faults and resume
+# ---------------------------------------------------------------------------
+
+def state_sums(state) -> dict:
+    """A float64 sum of each leaf of a state tree, computed on its device."""
+    from repro_torch.checkpoint.checkpointer import _flatten
+    return {k: torch.sum(v, dtype=torch.float64).item() for k, v in _flatten(state).items()}
+
+
+def logged_checkpointer(ckpt, records: list):
+    """`ckpt` (a Checkpointer) whose save and restore append a record:
+    step, host seconds (after the device finished), bytes and the state's
+    per-leaf checksums (taken before a save, after a restore)."""
+    from repro_torch.checkpoint.checkpointer import _flatten
+    save, restore = ckpt.save, ckpt.restore
+
+    def nbytes_of(state):
+        return sum(v.numel() * v.element_size() for v in _flatten(state).values())
+
+    def logged_save(step, state):
+        sums = state_sums(state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        refs = save(step, state)
+        seconds = time.perf_counter() - t0
+        records.append(dict(op="save", step=step, seconds=seconds, bytes=nbytes_of(state),
+                            sums=sums))
+        log("trainer_checkpoint", step=step, seconds=seconds, bytes=nbytes_of(state),
+            gb_per_s=nbytes_of(state) / seconds / 1e9, leaves=len(sums), checksums=sums)
+        return refs
+
+    def logged_restore(template, step=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, got = restore(template, step)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        records.append(dict(op="restore", step=got, seconds=seconds, bytes=nbytes_of(state),
+                            sums=state_sums(state)))
+        log("trainer_restore", step=got, seconds=seconds, bytes=nbytes_of(state),
+            gb_per_s=nbytes_of(state) / seconds / 1e9)
+        return state, got
+
+    ckpt.save, ckpt.restore = logged_save, logged_restore
+    return ckpt
+
+
+def free_card():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_trainer(seed):
+    """Full-width qwen2-1.5b through the engine-driven Trainer: run A takes
+    steps 0-2 with two injected step faults and checkpoints at step 2; run B,
+    a fresh Trainer on the same workdir, resumes there and takes steps 2-3.
+    Then a bare `train()` at the same batch, for what the engine costs."""
+    from repro_torch import train as tr
+    from repro_torch.configs import registry
+    from repro_torch.core import FaultInjector
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.optim import adamw
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(registry.get_config(TRAINER_ARCH), use_pallas=False)
+    hp = adamw.Hyper(lr=3e-4, warmup=2, total_steps=4, microbatches=1)
+    dcfg = DataConfig(seed=seed, global_batch=TRAINER_BATCH, seq_len=TRAIN_SEQ)
+    workdir = Path(__file__).resolve().parent / "build" / "trainer"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    # the f32 parameters and AdamW's two f32 moments: one checkpoint
+    state_bytes = 3 * 4 * cfg.param_count()
+    free = shutil.disk_usage(workdir).free
+    log("trainer_disk", workdir=str(workdir), free_bytes=free, state_bytes=state_bytes)
+    if free < 1.25 * state_bytes:
+        raise AssertionError(f"trainer: {free} bytes free under {workdir}, one checkpoint "
+                             f"takes {state_bytes}")
+    records = []
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        a = Trainer(cfg, hp, dcfg, str(workdir),
+                    TrainerConfig(total_steps=3, ckpt_every=2, eval_every=2, seed=seed),
+                    fault_injector=FaultInjector(seed=0).fail_first_n("train_step", 2),
+                    device="cuda")
+        logged_checkpointer(a.ckpt, records)
+        hist_a = a.fit()
+        rows_a = [r for r in hist_a if "loss" in r]
+        for r in hist_a:
+            log("trainer_a", **r)
+        retries = len(a.vdc.failures())
+        stats_a, setup_a, run_a = a.engine_stats, a.setup_s, a.run_s
+        del a
+        free_card()
+
+        b = Trainer(cfg, hp, dcfg, str(workdir), TrainerConfig(total_steps=4, ckpt_every=0,
+                                                               seed=seed), device="cuda")
+        logged_checkpointer(b.ckpt, records)
+        hist_b = b.fit()
+        rows_b = [r for r in hist_b if "loss" in r]
+        for r in hist_b:
+            log("trainer_b", **r)
+        stats_b, setup_b, run_b = b.engine_stats, b.setup_s, b.run_s
+        del b
+        free_card()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    bare = tr.train(cfg, steps=3, seq_len=TRAIN_SEQ, batch=TRAINER_BATCH, microbatches=1,
+                    seed=seed, device="cuda", log=lambda row: log("trainer_bare_step", **row))
+    free_card()
+
+    saves = [r for r in records if r["op"] == "save"]
+    restores = [r for r in records if r["op"] == "restore"]
+    steps_a, steps_b = [r["step"] for r in rows_a], [r["step"] for r in rows_b]
+    loss_a2 = next(r["loss"] for r in rows_a if r["step"] == 2)
+    loss_b2 = rows_b[0]["loss"] if rows_b else float("nan")
+    engine_ms = statistics.median(r["step_time"] for r in rows_a + rows_b) * 1e3
+    log("trainer", arch=cfg.name, seq_len=TRAIN_SEQ, batch=TRAINER_BATCH, microbatches=1,
+        steps_a=steps_a, steps_b=steps_b, retries=retries, engine_stats_a=stats_a,
+        engine_stats_b=stats_b, checkpoints=[r["step"] for r in saves],
+        checkpoint_s=[r["seconds"] for r in saves], restore_s=[r["seconds"] for r in restores],
+        state_bytes=state_bytes,
+        checkpoint_gb_per_s=[r["bytes"] / r["seconds"] / 1e9 for r in saves],
+        restore_gb_per_s=[r["bytes"] / r["seconds"] / 1e9 for r in restores],
+        loss_a_step2=loss_a2, loss_b_step2=loss_b2,
+        rel_diff=abs(loss_b2 - loss_a2) / abs(loss_a2),
+        setup_s_a=setup_a, run_s_a=run_a, setup_s_b=setup_b, run_s_b=run_b,
+        step_ms_engine_median=engine_ms,
+        wall_ms_per_step_b=run_b / max(1, len(steps_b)) * 1e3,
+        step_ms_bare_median=bare["step_ms"], peak_mem_bytes=peak,
+        seconds=time.perf_counter() - t_phase)
+    if steps_a != [0, 1, 2] or steps_b != [2, 3]:
+        raise AssertionError(f"trainer: run A took steps {steps_a}, run B {steps_b}")
+    if stats_a["failed"] or stats_b["failed"] or retries != 2:
+        raise AssertionError(f"trainer: failed tasks {stats_a['failed']}, {stats_b['failed']}; "
+                             f"{retries} retried attempts, 2 injected")
+    if [r["step"] for r in saves] != [2] or [r["step"] for r in restores] != [2]:
+        raise AssertionError(f"trainer: saved {saves}, restored {restores}")
+    if restores[0]["sums"] != saves[0]["sums"]:
+        bad = [k for k in saves[0]["sums"] if restores[0]["sums"].get(k) != saves[0]["sums"][k]]
+        raise AssertionError(f"trainer: restored checksums differ at {bad}")
+    losses = [r["loss"] for r in rows_a + rows_b] + [r["eval_loss"] for r in hist_a
+                                                   if "eval_loss" in r]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"trainer: non-finite losses {losses}")
+    if not abs(loss_b2 - loss_a2) <= 1e-4 * abs(loss_a2):
+        raise AssertionError(f"trainer: the resumed step-2 loss {loss_b2} is not within 1e-4 "
+                             f"of run A's {loss_a2}")
+    if not peak < 80e9:
+        raise AssertionError(f"trainer: peak memory {peak} bytes")
+
+
+# ---------------------------------------------------------------------------
+# 4c. reliability: kill-and-resume and the process federation, CUDA live
+# ---------------------------------------------------------------------------
+
+def fed_values(fed, n):
+    """The real_federation workload: `n` sleep tasks keyed t#i, whose
+    bodies sleep (and return) 1, 2 or 3 ms."""
+    from repro_torch.core.procfed import body_sleep
+    futs = [fed.submit("t", body_sleep, [FED_BODY_S * (1 + i % 3)],
+                       duration=FED_BODY_S * (1 + i % 3), key=f"t#{i}") for i in range(n)]
+    fed.run()
+    return futs
+
+
+def phase_reliability(seed):
+    """With CUDA initialised here: the port's kill_resume benchmark at the
+    reference's CI size, and a 2-shard ProcessFederation (spawned shards)
+    against an in-process FederatedEngine under SimClock."""
+    from repro_torch.benchmarks import kill_resume as kr
+    from repro_torch.core import (DRPConfig, FalkonConfig, FalkonProvider, FalkonService,
+                                  FederatedEngine, ProcessFederation, ShardSpec, SimClock)
+
+    if not torch.cuda.is_initialized():
+        raise AssertionError("reliability: CUDA is not initialised in the parent")
+    t0 = time.perf_counter()
+    workdir = Path(__file__).resolve().parent / "build" / "kill_resume"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    try:
+        payload = kr.measure(KILL_RESUME_TASKS, str(workdir))   # asserts the reference's bounds
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    log("reliability_kill_resume", **payload)
+
+    clock = SimClock()
+    sim = FederatedEngine(FED_SHARDS, clock=clock, steal=False,
+                          engine_kwargs={"provenance": "summary"})
+    for i, eng in enumerate(sim.shards):
+        svc = FalkonService(clock, FalkonConfig(drp=DRPConfig(
+            max_executors=2, alloc_latency=1e-4, alloc_chunk=2)))
+        eng.add_site(f"falkon{i}", FalkonProvider(svc), capacity=2)
+    sim_vals = [f.get() for f in fed_values(sim, FED_TASKS)]
+    spec = ShardSpec(executors=2, serialize_dispatch=True, dispatch_overhead=1.0 / FED_CEILING,
+                     alloc_latency=1e-4)
+    with ProcessFederation(FED_SHARDS, spec, steal=False) as fed:
+        fed.wait_ready()
+        t1 = time.perf_counter()
+        futs = fed_values(fed, FED_TASKS)
+        wall = time.perf_counter() - t1
+        real_vals = [f.get() if f.done and not f.failed else None for f in futs]
+        stats = fed.stats()
+    log("reliability_procfed", shards=FED_SHARDS, tasks=FED_TASKS, wall_s=wall,
+        tasks_per_s=FED_TASKS / wall, completed=stats["completed"], failed=stats["failed"],
+        per_shard_completed=stats["per_shard_completed"],
+        sim_per_shard_completed=sim.stats()["per_shard_completed"], sim_makespan=clock.now(),
+        seconds=time.perf_counter() - t0)
+    if real_vals != sim_vals or stats["completed"] != FED_TASKS or stats["failed"]:
+        raise AssertionError("reliability: the process federation's values differ from the "
+                             "in-process federation's")
+    if stats["per_shard_completed"] != sim.stats()["per_shard_completed"]:
+        raise AssertionError("reliability: the two federations placed tasks differently")
+
+
+# ---------------------------------------------------------------------------
+# 4d. vmap_clustering: the reference's clustering benchmark on the card
+# ---------------------------------------------------------------------------
+
+def phase_vmap_clustering(seed):
+    from repro_torch.benchmarks import vmap_clustering as vc
+    t0 = time.perf_counter()
+    res = vc.run("cuda", seed)
+    fused, single = res["outputs_fused"], res["outputs_per_task"]
+    err = hold_tier("vmap_clustering fused vs per task", fused, single)
+    log("vmap_clustering", **{k: v for k, v in res.items() if not k.startswith("outputs")},
+        max_abs_err=err, seconds=time.perf_counter() - t0, **TIER_TOL)
+    if fused.shape != (vc.N_TASKS,) or not torch.isfinite(fused).all():
+        raise AssertionError("vmap_clustering: outputs not finite or misshapen")
+    vc.check(res)
+
+
+# ---------------------------------------------------------------------------
 # 5. kernel time at the serving shapes
 # ---------------------------------------------------------------------------
 
@@ -1002,6 +1266,16 @@ def main():
         raise AssertionError(f"a kernel was launched while training: {train_launches}")
     launches = {arch: phase_serve(arch, seed) for arch in ARCHS}
     phase_device_tier(seed)
+    for w in ws.values():
+        w.launches = 0
+    phase_trainer(seed)
+    phase_reliability(seed)
+    phase_vmap_clustering(seed)
+    reliability_launches = {name: w.launches for name, w in ws.items()}
+    log("reliability_launches", launches=reliability_launches)
+    if any(reliability_launches.values()):
+        raise AssertionError(f"the trainer, reliability or clustering phase launched a kernel: "
+                             f"{reliability_launches}")
     kernels = phase_kernel_time(gen, launches, worst)
     log("done", seconds=time.perf_counter() - t0)
     print(json.dumps({"kernels": kernels}))

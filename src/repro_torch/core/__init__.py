@@ -8,12 +8,15 @@ Falkon service (`repro_torch.core.falkon`) -> sites/load balancing
 (`repro_torch.core.sites`) -> engine dataflow + dispatch policy
 (`repro_torch.core.engine`), with the device tier
 (`repro_torch.core.clustering`, `repro_torch.core.devicepool`) on
-`torch.func.vmap`.  The reliability modules (federation, procfed,
-jobstore, service) are not ported yet.
+`torch.func.vmap`, and the reliability half: the durable job store
+(`repro_torch.core.jobstore`), the workflow service over it
+(`repro_torch.core.service`), and the in-process and process-per-shard
+federations (`repro_torch.core.federation`, `repro_torch.core.procfed`).
 
 Public API:
     Engine, Workflow, Dataset, mappers, FalkonService, providers,
-    RestartLog, FaultInjector, SimClock/RealClock, DeviceExecutorPool.
+    RestartLog, FaultInjector, SimClock/RealClock, DeviceExecutorPool,
+    JobStore, WorkflowService, FederatedEngine, ProcessFederation.
 """
 from repro_torch.core.clustering import VmapClusteringProvider
 from repro_torch.core.datastore import (DataLayer, DataObject,
@@ -25,14 +28,25 @@ from repro_torch.core.devicepool import DeviceExecutorPool
 from repro_torch.core.engine import Engine
 from repro_torch.core.falkon import DRPConfig, FalkonConfig, FalkonService
 from repro_torch.core.faults import FaultInjector, RetryPolicy, TaskFailure
+from repro_torch.core.federation import (FederatedEngine, Mailbox,
+                                         MailboxTransport, QueueTransport,
+                                         ShardedDataLayer, WorkStealer,
+                                         hash_partitioner,
+                                         inputs_partitioner,
+                                         skewed_partitioner)
 from repro_torch.core.futures import (CompletionCounter, DataFuture,
                                       resolved, when_all)
 from repro_torch.core.health import (METRICS_STREAM_SCHEMA, HealthConfig,
                                      HealthMonitor, RollingStat)
+from repro_torch.core.jobstore import (IllegalTransition, JobStore, Journal,
+                                       TaskStateMachine, WorkflowState)
 from repro_torch.core.metrics import StreamStat
 from repro_torch.core.observability import (BoundedLog, MetricsRegistry,
                                             RunReport, Span, Tracer,
                                             build_report)
+from repro_torch.core.procfed import (ProcessFederation, ProcessTransport,
+                                      Ref, ShardHost, ShardSpec,
+                                      SocketTransport)
 from repro_torch.core.provenance import VDC, InvocationRecord
 from repro_torch.core.providers import (BatchSchedulerProvider,
                                         ClusteringProvider, FalkonProvider,
@@ -40,6 +54,8 @@ from repro_torch.core.providers import (BatchSchedulerProvider,
                                         WorkerPoolProvider)
 from repro_torch.core.realpool import ProcessExecutorPool, ThreadExecutorPool
 from repro_torch.core.restart_log import RestartLog
+from repro_torch.core.service import (ResumeView, WorkflowHandle,
+                                      WorkflowService)
 from repro_torch.core.simclock import RealClock, SimClock
 from repro_torch.core.sites import LoadBalancer, Site
 from repro_torch.core.task import Task, task_key
@@ -59,6 +75,8 @@ __all__ = [
     "DataFuture", "CompletionCounter", "resolved", "when_all",
     "SimClock", "RealClock",
     "RestartLog", "FaultInjector", "RetryPolicy", "TaskFailure",
+    "JobStore", "Journal", "TaskStateMachine", "IllegalTransition",
+    "WorkflowState", "WorkflowService", "WorkflowHandle", "ResumeView",
     "VDC", "InvocationRecord", "LoadBalancer", "Site", "StreamStat",
     "Tracer", "Span", "BoundedLog", "MetricsRegistry", "RunReport",
     "build_report",
@@ -66,6 +84,11 @@ __all__ = [
     "DataLayer", "DataObject", "SharedStore", "ExecutorCache",
     "StagingCostModel", "EvictionPolicy", "LRUPolicy", "LFUPolicy",
     "SizeAwarePolicy", "ShardDirectory",
+    "FederatedEngine", "Mailbox", "MailboxTransport", "QueueTransport",
+    "WorkStealer", "ShardedDataLayer",
+    "ProcessFederation", "ShardSpec", "ShardHost", "ProcessTransport",
+    "SocketTransport", "Ref",
+    "hash_partitioner", "skewed_partitioner", "inputs_partitioner",
     "Dataset", "Mapper", "ListMapper", "FileSystemMapper", "CSVMapper",
     "ShardMapper", "PhysicalRef", "Struct", "ArrayOf", "Primitive",
     "INT", "FLOAT", "STRING", "FILE",

@@ -1,9 +1,15 @@
 """Train a model for a few steps on synthetic data.
 
-The port's counterpart of the step loop of `examples/train_lm.py` (the
-reference's `Trainer.fit`), without the workflow engine: the engine, its
-checkpoints and its restart log come with the workflow stack (ROADMAP.md).
-At full width by default.  The parameters are an f32 master copy drawn from
+Two ways, both at full width by default:
+  * `train()`, the bare step loop (no engine, no checkpoints);
+  * with ``--workdir DIR``, `repro_torch.train.trainer.Trainer.fit`, the
+    port's counterpart of `examples/train_lm.py`: every step, data stage,
+    eval and checkpoint is a task of the workflow engine (an eval on a
+    held-out batch and a checkpoint under DIR/ckpt every 2 steps), and a
+    second run on the same DIR resumes from the newest checkpoint there
+    (``--steps`` counts from step 0, so a resumed run trains the steps
+    between that checkpoint and ``--steps``).
+  The parameters are an f32 master copy drawn from
 a seeded `torch.Generator` on the device; the layers compute in the
 config's compute dtype (bf16 for the repo's configs), each weight cast at
 use.  Batches come from `SyntheticLM`, AdamW with a warmup-cosine schedule
@@ -28,6 +34,7 @@ Run:  PYTHONPATH=src python -m repro_torch.train [--arch qwen2-1.5b |
           falcon-mamba-7b | recurrentgemma-9b | granite-moe-3b-a800m |
           deepseek-v2-236b] [--smoke] [--steps 6]
           [--seq-len 4096] [--batch 8] [--microbatches 4] [--device cuda]
+          [--workdir DIR]
 """
 from __future__ import annotations
 
@@ -134,9 +141,14 @@ def main(argv=None):
     ap.add_argument("--microbatches", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--workdir", default=None,
+                    help="train through Trainer.fit, checkpointing under "
+                         "DIR/ckpt and resuming from there")
     args = ap.parse_args(argv)
     cfg = registry.smoke_config(args.arch) if args.smoke else registry.get_config(args.arch)
     cfg = dataclasses.replace(cfg, use_pallas=False)
+    if args.workdir is not None:
+        return fit_main(cfg, args)
     res = train(cfg, steps=args.steps, seq_len=args.seq_len, batch=args.batch,
                 microbatches=args.microbatches, seed=args.seed, device=args.device)
     dev = resolve_device(args.device)
@@ -144,6 +156,26 @@ def main(argv=None):
                       "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
                       **{k: v for k, v in res.items() if k != "steps"}}))
     return res
+
+
+def fit_main(cfg: ModelConfig, args) -> list[dict]:
+    """`main` with --workdir: the engine-driven `Trainer` on `args`."""
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    hp = adamw.Hyper(lr=3e-4, warmup=2, total_steps=args.steps,
+                     microbatches=args.microbatches)
+    dcfg = DataConfig(seed=args.seed, global_batch=args.batch, seq_len=args.seq_len)
+    tcfg = TrainerConfig(total_steps=args.steps, ckpt_every=2, eval_every=2,
+                         seed=args.seed)
+    tr = Trainer(cfg, hp, dcfg, args.workdir, tcfg, device=args.device)
+    hist = tr.fit()
+    for row in hist:
+        print(json.dumps(row))
+    steps = [r["step"] for r in hist if "loss" in r]
+    print(json.dumps({"summary": "fit", "arch": cfg.name, "workdir": args.workdir,
+                      "steps_run": steps, "checkpoints": tr.ckpt.steps(),
+                      "setup_s": tr.setup_s, "run_s": tr.run_s,
+                      **tr.engine_stats}))
+    return hist
 
 
 if __name__ == "__main__":

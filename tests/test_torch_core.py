@@ -238,9 +238,120 @@ def health_straggler(core, tmp_path):
             "report": _report_tasks(core, tracer, makespan)}
 
 
+def federation_skew_steal(core, tmp_path):
+    """800 one-second jobs over 4 Falkon shards, 80% of them partitioned
+    onto shard 0, with work stealing on."""
+    clock = core.SimClock()
+    fed = core.FederatedEngine(4, clock=clock,
+                               partitioner=core.skewed_partitioner(0.8),
+                               steal=True,
+                               engine_kwargs={"provenance": "summary"})
+    svcs = []
+    for i, eng in enumerate(fed.shards):
+        svc = core.FalkonService(clock, core.FalkonConfig(drp=core.DRPConfig(
+            max_executors=4, alloc_latency=1.0, alloc_chunk=4)))
+        eng.add_site(f"falkon{i}", core.FalkonProvider(svc), capacity=4)
+        svcs.append(svc)
+    wf = core.Workflow("t", fed)
+    out = wf.gather([fed.submit(f"job{i}", lambda i=i: 3 * i, duration=1.0)
+                     for i in range(800)])
+    fed.run()
+    m = fed.metrics()
+    assert m["stealer"]["tasks_stolen"] > 0
+    return {"values": out.get(), "makespan": clock.now(),
+            "stats": fed.stats(), "stealer": m["stealer"],
+            "util": [s.utilization() for s in svcs]}
+
+
+def service_kill_and_resume(core, tmp_path):
+    """A `WorkflowService` over a `JobStore`: a first run whose squares fail
+    from item 12 on, the store closed, then the same program resumed: the
+    done squares restore and only the rest re-run."""
+    db = str(tmp_path / f"{core.__name__}.db")
+    ran = []
+
+    def run_once(fail_at):
+        clock = core.SimClock()
+        eng = core.Engine(clock)
+        eng.local_site(concurrency=4)
+        with core.JobStore(db) as store, \
+                core.WorkflowService(eng, store) as svc:
+            h = svc.open("etl")
+
+            def square(x):
+                if fail_at is not None and x >= fail_at:
+                    raise RuntimeError("crash")
+                ran.append(x)
+                return x * x
+
+            sq = h.wf.atomic(fn=square, name="square")
+            out = h.seal(h.wf.gather([sq(i) for i in range(30)]))
+            svc.run()
+            return ({"failed": out.failed,
+                     "values": None if out.failed else out.get(),
+                     "restored": h.restored, "run_id": h.run_id,
+                     "counts": h.counts(), "status": svc.status("etl"),
+                     "makespan": clock.now()},
+                    store.load("etl").counts)
+
+    first = run_once(fail_at=12)
+    ran_first = sorted(ran)
+    ran.clear()
+    second = run_once(fail_at=None)
+    assert second[0]["restored"] == 12 and sorted(ran) == list(range(12, 30))
+    return {"first": first, "second": second, "ran": [ran_first, sorted(ran)],
+            "peek": core.JobStore.peek(db, "etl")}
+
+
+def process_federation_two_shards(core, tmp_path):
+    """A MolDyn-shaped DAG (per molecule a generator, 3 analyses and a
+    collect) on a 2-process federation over pipes, beside the same DAG on
+    an in-process `FederatedEngine` under `SimClock`."""
+    from importlib import import_module
+    bodies = import_module(core.__name__ + ".procfed")
+
+    def submit(fed):
+        cols = {}
+        for m in range(4):
+            gen = fed.submit("gen", bodies.body_value, [m * 10],
+                             duration=0.02, key=f"gen_m{m}")
+            ans = [fed.submit("an", bodies.body_scale, [gen], duration=0.01,
+                              key=f"an_m{m}_k{k}") for k in range(3)]
+            cols[m] = fed.submit("col", bodies.body_sum, ans, duration=0.01,
+                                 key=f"col_m{m}")
+        return cols
+
+    clock = core.SimClock()
+    sim = core.FederatedEngine(2, clock=clock, steal=False,
+                               engine_kwargs={"provenance": "summary"})
+    for i, eng in enumerate(sim.shards):
+        svc = core.FalkonService(clock, core.FalkonConfig(drp=core.DRPConfig(
+            max_executors=2, alloc_latency=1e-4, alloc_chunk=2)))
+        eng.add_site(f"falkon{i}", core.FalkonProvider(svc), capacity=2)
+    sim_cols = submit(sim)
+    sim.run()
+    with core.ProcessFederation(2, core.ShardSpec(executors=2,
+                                                  alloc_latency=1e-4),
+                                steal=False) as fed:
+        fed.wait_ready()
+        real_cols = submit(fed)
+        fed.run()
+        real = {m: f.get() for m, f in real_cols.items()}
+        stats = fed.stats()
+    sim_vals = {m: f.get() for m, f in sim_cols.items()}
+    assert real == sim_vals
+    assert stats["per_shard_completed"] == sim.stats()["per_shard_completed"]
+    return {"values": real, "placement": stats["per_shard_completed"],
+            "completed": stats["completed"], "failed": stats["failed"],
+            "cross_shard_edges": stats["cross_shard_edges"],
+            "sim_makespan": clock.now()}
+
+
 SCENARIOS = [moldyn_drp, retries_under_faults, restart_log_resume,
              data_layer_cache, batch_scheduler_vs_falkon,
-             foreach_window_streaming, health_straggler]
+             foreach_window_streaming, health_straggler,
+             federation_skew_steal, service_kill_and_resume,
+             process_federation_two_shards]
 
 
 @pytest.mark.parametrize("scenario", SCENARIOS, ids=lambda f: f.__name__)
@@ -262,7 +373,7 @@ def test_copied_modules_differ_only_in_package_name():
     copied = ["futures", "simclock", "metrics", "faults", "provenance",
               "xdtm", "restart_log", "sites", "providers", "health",
               "observability", "falkon", "datastore", "engine", "workflow",
-              "realpool"]
+              "realpool", "jobstore", "service", "federation", "procfed"]
     for m in copied:
         ref = (REPO / "src/repro/core" / f"{m}.py").read_text()
         port = (REPO / "src/repro_torch/core" / f"{m}.py").read_text()
@@ -293,10 +404,15 @@ def test_numpy_signatures_equal_and_tensors_carry_device():
 
 def test_port_core_imports_no_jax():
     """In a fresh interpreter: the port's scheduling stack, device tier,
-    predictor and benchmark leave `jax` and `repro` out of sys.modules."""
+    predictor, benchmarks, checkpointer and trainer leave `jax` and `repro`
+    out of sys.modules."""
     code = ("import sys, repro_torch.core, repro_torch.core.devicepool, "
             "repro_torch.launch.op_cost, "
-            "repro_torch.benchmarks.device_batching; "
+            "repro_torch.benchmarks.device_batching, "
+            "repro_torch.benchmarks.kill_resume, "
+            "repro_torch.benchmarks.vmap_clustering, "
+            "repro_torch.checkpoint.checkpointer, "
+            "repro_torch.train.trainer; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad")
@@ -311,10 +427,10 @@ def test_import_walk_covers_the_scheduling_stack():
     that walk, and their files import neither package."""
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     dirs = {f.parent.name for f in files}
-    assert {"core", "launch", "benchmarks"} <= dirs
-    new = [f for f in files if f.parent.name in ("core", "launch",
-                                                 "benchmarks")]
-    assert len(new) >= 22
+    walked = ("core", "launch", "benchmarks", "checkpoint", "train")
+    assert set(walked) <= dirs
+    new = [f for f in files if f.parent.name in walked]
+    assert len(new) >= 36
     for f in new:
         for node in ast.walk(ast.parse(f.read_text())):
             names = ([a.name for a in node.names]
