@@ -72,6 +72,25 @@ its last line):
   4d. vmap_clustering: the port of the reference's clustering benchmark on
      the card under its own assertions (every task fused, >= 1.5x), fused
      outputs against per-task ones; no kernel is launched in 4b-4d;
+  4e. compression: gradient compression with error feedback on the card,
+     at full-width qwen2-1.5b's gradient shapes (f32, one tensor per
+     parameter leaf, 1.544 B elements from the generator; the largest
+     leaf, the 151,936 x 1,536 embedding, drawn tie-free in |g|): 3 steps
+     of int8, then 3 of top-k at 1%, each logged with its ms, GB/s over the
+     f32 gradient bytes and compressed over f32 bytes.  Held: the largest
+     leaf's q and scale (int8) and vals and idx (top-k) of the first step
+     equal a CPU run of the same function on the same values, and every
+     residual equals the input minus the decompressed value at 1e-6;
+  4f. elastic: a one-rank NCCL process group and `make_mesh_for_dp(1)` on
+     the card; full-width qwen2-1.5b's f32 parameters `reshard_tree`d onto
+     it come back bit-equal; the seconds logged; the group destroyed;
+  4g. dryrun: `python -m repro_torch.launch.dryrun` for qwen2-1.5b x
+     train_4k, prefill_32k and decode_32k and falcon-mamba-7b x prefill_32k
+     on the 16 x 16 fake world, one process per cell, started before 4e
+     (the host traces them while the card compresses); each must exit 0;
+     each cell's per-device GB and three roofline terms are logged (H100
+     cluster predictions, not measurements); no kernel is launched in
+     4e-4g;
   5. time each kernel at its serving shape beside its bound, its plain
      version and, where one PyTorch call computes the same function, that
      call; for the kernels that take exponentials (flash attention, the
@@ -172,6 +191,12 @@ FED_SHARDS, FED_TASKS, FED_BODY_S, FED_CEILING = 2, 600, 0.001, 100.0
 # products may sum in another order than one task's (the reference's own
 # per-task-vs-bundle test misses rtol 1e-5 by that: 8.3e-5 relative)
 TIER_TOL = dict(rtol=1e-4, atol=1e-5)
+# the tooling phases: compression at qwen2-1.5b's gradient shapes, 3 steps a scheme
+COMPRESSION_ARCH, COMPRESSION_STEPS, TOPK_FRAC = "qwen2-1.5b", 3, 0.01
+# the dry run's cells: full width on the 16 x 16 fake world, one process each
+DRYRUN_CELLS = (("qwen2-1.5b", "train_4k"), ("qwen2-1.5b", "prefill_32k"),
+                ("qwen2-1.5b", "decode_32k"), ("falcon-mamba-7b", "prefill_32k"))
+DRYRUN_TIMEOUT_S = 400
 # tests/test_kernels.py's tolerances
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}                 # flash attention, RG-LRU scan
 MAMBA_TOL = {torch.float32: 5e-5, torch.bfloat16: 5e-2}
@@ -1044,6 +1069,166 @@ def phase_vmap_clustering(seed):
 
 
 # ---------------------------------------------------------------------------
+# 4e-4g. the tooling: compression, the elastic mesh, the dry run
+# ---------------------------------------------------------------------------
+
+def tie_free(n: int, gen) -> torch.Tensor:
+    """n f32 values with distinct |x|: consecutive bit patterns from 1.0 up,
+    in a random order, with random signs."""
+    bits = torch.randperm(n, generator=gen, device="cuda", dtype=torch.int32) + 0x3F800000
+    sign = torch.rand(n, generator=gen, device="cuda") < 0.5
+    x = bits.view(torch.float32)
+    return torch.where(sign, -x, x)
+
+
+def phase_compression(seed):
+    """Error-feedback compression of full-width qwen2-1.5b's gradient shapes
+    on the card: int8, then top-k at 1%, 3 steps each."""
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import tree_leaves, tree_map_desc
+    from repro_torch.optim import compression as comp
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    descs = T.build_descriptors(registry.get_config(COMPRESSION_ARCH))
+    big = max(tree_leaves(descs, is_leaf=lambda d: hasattr(d, "axes")),
+              key=lambda d: math.prod(d.shape))
+
+    def draw(d):
+        if d is big:
+            return tie_free(math.prod(d.shape), gen).reshape(d.shape)
+        return torch.randn(d.shape, generator=gen, device="cuda")
+
+    grads = tree_map_desc(draw, descs)
+    g_leaves = tree_leaves(grads)
+    f32_bytes = sum(g.numel() * 4 for g in g_leaves)
+    ibig = next(i for i, g in enumerate(g_leaves) if g.shape == big.shape)
+    for scheme in ("int8", "topk"):
+        residual = comp.init_residual(grads)
+        for step in range(COMPRESSION_STEPS):
+            r_in = tree_leaves(residual)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            c, residual, deq = comp.compress_with_feedback(grads, residual, scheme=scheme,
+                                                           topk_frac=TOPK_FRAC)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t1
+            err = max(float((r - ((g + r0) - q).float()).abs().max())
+                      for r, g, r0, q in zip(tree_leaves(residual), g_leaves, r_in,
+                                             tree_leaves(deq)))
+            row = dict(scheme=scheme, step=step, ms=dt * 1e3, gb_per_s=f32_bytes / dt / 1e9,
+                       f32_bytes=f32_bytes, compressed_bytes=comp.compressed_bytes(c),
+                       ratio=comp.compressed_bytes(c) / f32_bytes, leaves=len(g_leaves),
+                       elements=f32_bytes // 4, residual_err=err)
+            if step == 0:
+                # the largest leaf, on the CPU from the same values
+                ref, _, _ = comp.compress_with_feedback(
+                    {"w": g_leaves[ibig].cpu()}, {"w": r_in[ibig].cpu()}, scheme=scheme,
+                    topk_frac=TOPK_FRAC)
+                same = all(torch.equal(a.cpu(), b) for a, b in zip(c[ibig], ref[0]))
+                row.update(largest_leaf=list(big.shape), largest_leaf_equal_cpu=same)
+                if not same:
+                    raise AssertionError(f"compression {scheme}: the largest leaf's "
+                                         "compressed form differs from the CPU's")
+            log("compression", **row)
+            if err > 1e-6:
+                raise AssertionError(f"compression {scheme}: residual is not the input minus "
+                                     f"the decompressed value ({err})")
+            del c, deq, r_in
+        del residual
+    del grads, g_leaves
+    free_card()
+    log("compression_done", seconds=time.perf_counter() - t0)
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_elastic(seed):
+    """A one-rank NCCL group; full-width qwen2-1.5b's f32 parameters
+    resharded onto `make_mesh_for_dp(1)` must come back bit-equal."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import registry
+    from repro_torch.distributed.elastic import make_mesh_for_dp, reshard_tree
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_tree, tree_leaves
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    descs = T.build_descriptors(registry.get_config(COMPRESSION_ARCH))
+    params = init_tree(descs, gen, "cuda")
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            rank=0, world_size=1)
+    try:
+        t0 = time.perf_counter()
+        mesh = make_mesh_for_dp(1, device_type="cuda")
+        t_mesh = time.perf_counter() - t0
+        out = reshard_tree(params, descs, mesh)
+        torch.cuda.synchronize()
+        t_reshard = time.perf_counter() - t0 - t_mesh
+        pairs = list(zip(tree_leaves(out), tree_leaves(params)))
+        same = all(torch.equal(o.to_local(), p) for o, p in pairs)
+        nbytes_ = sum(p.numel() * p.element_size() for _, p in pairs)
+        log("elastic", mesh=str(mesh), mesh_s=t_mesh, reshard_s=t_reshard, leaves=len(pairs),
+            bytes=nbytes_, gb_per_s=nbytes_ / t_reshard / 1e9, bit_equal=same,
+            placements=sorted({str(o.placements) for o, _ in pairs}))
+        if not same:
+            raise AssertionError("elastic: resharded parameters differ from the originals")
+        del out, pairs
+    finally:
+        dist.destroy_process_group()
+    del params
+    free_card()
+
+
+def start_dryrun() -> tuple:
+    """Start one dry-run process per cell (host only: the card is hidden)."""
+    import os
+    root = Path(__file__).resolve().parent
+    out = root / "build" / "dryrun"
+    out.mkdir(parents=True, exist_ok=True)
+    for arch, shape in DRYRUN_CELLS:
+        for ext in (".json", ".err"):
+            (out / f"{arch}__{shape}__16x16{ext}").unlink(missing_ok=True)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=str(root / "src") + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    procs = [subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                               "--shape", shape, "--out", str(out)], cwd=root, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for arch, shape in DRYRUN_CELLS]
+    return procs, out, time.perf_counter()
+
+
+def phase_dryrun(started):
+    """Wait for the dry-run processes; each must exit 0; log every cell."""
+    procs, out, t0 = started
+    for (arch, shape), p in zip(DRYRUN_CELLS, procs):
+        text, _ = p.communicate(timeout=max(1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)))
+        lines = text.splitlines()
+        if p.returncode:
+            raise AssertionError(f"dryrun {arch} {shape} exited {p.returncode}: "
+                                 + "\n".join(lines[-20:]))
+        rec = json.loads((out / f"{arch}__{shape}__16x16.json").read_text())
+        r, m = rec["roofline"], rec["memory"]
+        log("dryrun_cell", arch=arch, shape=shape, mesh=rec["mesh"], torch=lines[0],
+            trace_s=rec["compile_s"], arg_gb=m["argument_bytes"] / 1e9,
+            out_gb=m["output_bytes"] / 1e9, temp_gb=m["temp_bytes"] / 1e9,
+            fits_80gb=m["fits_80gb"], compute_s=r["compute_term_s"],
+            memory_s=r["memory_term_s"], collective_s=r["collective_term_s"],
+            dominant=r["dominant"], useful=r.get("useful_flops_ratio"),
+            mfu_bound=r.get("mfu_bound"), collectives=r["collective_ops"])
+    log("dryrun", cells=len(procs), seconds=time.perf_counter() - t0,
+        torch=torch.__version__)
+
+
+# ---------------------------------------------------------------------------
 # 5. kernel time at the serving shapes
 # ---------------------------------------------------------------------------
 
@@ -1276,6 +1461,22 @@ def main():
     if any(reliability_launches.values()):
         raise AssertionError(f"the trainer, reliability or clustering phase launched a kernel: "
                              f"{reliability_launches}")
+    for w in ws.values():
+        w.launches = 0
+    dry = start_dryrun()
+    try:
+        phase_compression(seed)
+        phase_elastic(seed)
+        phase_dryrun(dry)
+    finally:
+        for p in dry[0]:
+            p.kill()
+            p.wait()
+    tooling_launches = {name: w.launches for name, w in ws.items()}
+    log("tooling_launches", launches=tooling_launches)
+    if any(tooling_launches.values()):
+        raise AssertionError(f"the compression, elastic or dryrun phase launched a kernel: "
+                             f"{tooling_launches}")
     kernels = phase_kernel_time(gen, launches, worst)
     log("done", seconds=time.perf_counter() - t0)
     print(json.dumps({"kernels": kernels}))

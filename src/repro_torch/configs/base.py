@@ -138,3 +138,37 @@ class ModelConfig:
         n_moe_layers = sum(1 for s in self.layer_specs() if s.ffn == "moe")
         inactive = n_moe_layers * (m.n_experts - m.top_k) * per_expert
         return total - inactive
+
+
+# ---------------------------------------------------------------------------
+# Shape cells of the dry run (LM-family: seq_len x global_batch)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                   # train | prefill | decode
+
+
+SHAPES: dict[str, ShapeCell] = {
+    "train_4k": ShapeCell("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524288, 1, "decode"),
+}
+
+# archs allowed to run long_500k (sub-quadratic-capable; see DESIGN.md §4)
+LONG_CONTEXT_ARCHS = {"recurrentgemma-9b", "falcon-mamba-7b", "gemma3-27b"}
+
+
+def runnable_cells() -> list[tuple[str, str]]:
+    from repro_torch.configs import registry
+    cells = []
+    for arch in registry.ARCH_NAMES:
+        for shape in SHAPES:
+            if shape == "long_500k" and arch not in LONG_CONTEXT_ARCHS:
+                continue
+            cells.append((arch, shape))
+    return cells

@@ -1,1 +1,2 @@
-"""Cost models of task bodies (the JAX package's `repro/launch/` counterpart)."""
+"""Meshes, abstract inputs, the dry run and its cost model (the JAX
+package's `repro/launch/` counterpart)."""

@@ -17,13 +17,36 @@ the HLO walk's rules:
 
 Eager torch does not fuse, so the byte count is what an op-by-op run
 moves: an upper bound on what the reference's fused HLO reads and writes.
+
+`analyze(fn, *args)` is the counterpart of the HLO half (`HloModule`,
+`analyze`).  It runs `fn` once under the same counter, on whatever tensors
+it is given: fake or meta tensors cost nothing, and DTensors are let
+through to their own dispatch first, so that the counter sees each rank's
+local ops (per-device FLOPs and bytes) and the functional collectives
+DTensor emits.  Each collective (`all_reduce`, `all_gather_into_tensor`,
+`reduce_scatter_tensor`, `all_to_all_single`, and DTensor's
+`shard_dim_alltoall`) adds its per-device wire bytes by the reference's
+ring formulas, over the size of the group it names; `wait_tensor` is free.
+DTensor's all-to-all runs as on a card's mesh, not as the "cpu" mesh's
+all-gather and chunk (`alltoall_as_on_a_card`).  Eager loops are unrolled in Python, so every trip
+is counted as it runs: the HLO walk's trip-count rule has no counterpart.
+The counter also keeps the peak of the bytes its ops' outputs hold alive
+(`Cost.peak_bytes`), freed when the tensor is; eager execution reuses no
+buffers the way XLA's allocator does, so this is the peak of what the
+program holds, not of a planned arena.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
+import weakref
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.core.task import arg_signature, stable_fn_key
@@ -33,12 +56,19 @@ _aten = torch.ops.aten
 
 @dataclasses.dataclass
 class Cost:
-    """FLOPs and bytes of one call (a single-device eager body issues no
-    collectives, so the reference's collective fields have no
-    counterpart)."""
+    """FLOPs, bytes and collective wire bytes of one call, per device."""
 
     flops: float = 0.0
     bytes: float = 0.0
+    coll_wire: float = 0.0
+    coll_by_kind: dict = dataclasses.field(default_factory=dict)
+    peak_bytes: float = 0.0
+
+    def add_coll(self, kind: str, wire: float):
+        self.coll_wire += wire
+        e = self.coll_by_kind.setdefault(kind, {"bytes": 0.0, "count": 0.0})
+        e["bytes"] += wire
+        e["count"] += 1
 
 
 def _contracted(func, args) -> int:
@@ -59,7 +89,9 @@ _REDUCTIONS = {"sum", "mean", "amax", "amin", "max", "min", "prod",
 
 # ops that only relabel a tensor's metadata: no FLOPs and no bytes
 _VIEWS = {"_unsafe_view", "_reshape_alias", "squeeze_", "unsqueeze_",
-          "transpose_", "t_", "as_strided_", "resize_", "set_"}
+          "transpose_", "t_", "as_strided_", "resize_", "set_",
+          # a collective's result handed back, and the wait for it
+          "_wrap_tensor_autograd", "wait_tensor"}
 
 _FREE = {
     # copies, conversions and layout changes (flop-free in the HLO walk)
@@ -73,6 +105,42 @@ _FREE = {
     "fill_", "new_empty", "new_zeros", "new_ones", "new_full",
     "new_empty_strided",
 }
+
+
+_c10d = torch.ops._c10d_functional
+
+# functional collective -> the reference's HLO name
+COLLECTIVES = {
+    _c10d.all_reduce: "all-reduce",
+    _c10d.all_reduce_: "all-reduce",
+    _c10d.all_gather_into_tensor: "all-gather",
+    _c10d.reduce_scatter_tensor: "reduce-scatter",
+    _c10d.all_to_all_single: "all-to-all",
+    torch.ops._dtensor.shard_dim_alltoall: "all-to-all",
+}
+
+
+def wire_bytes(kind: str, result_bytes: float, n: int) -> float:
+    """Per-device bytes on the wire of one collective over a group of `n`
+    (ring formulas, the reference's `hlo_analysis.collective_bytes`)."""
+    if kind == "all-gather":
+        return result_bytes * (n - 1) / n
+    if kind == "reduce-scatter":
+        return result_bytes * (n - 1)
+    if kind == "all-reduce":
+        return result_bytes * 2 * (n - 1) / n
+    if kind == "all-to-all":
+        return result_bytes * (n - 1) / n
+    return result_bytes
+
+
+def _group_size(args) -> int:
+    """The size of the process group a functional collective names (its
+    last string argument)."""
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    name = [a for a in args if isinstance(a, str)][-1]
+    return dist.get_world_size(_resolve_process_group(name))
 
 
 def _tensors(tree):
@@ -91,28 +159,141 @@ def _nbytes(t: torch.Tensor) -> int:
 
 
 class _OpCounter(TorchDispatchMode):
-    """Adds each dispatched aten op's FLOPs and bytes to `cost`."""
+    """Adds each dispatched aten op's FLOPs and bytes, and each collective's
+    wire bytes, to `cost`; keeps the peak of the bytes live in its ops'
+    outputs.  An op on DTensors is handed to DTensor first (NotImplemented),
+    which runs it as local ops and collectives that come back here."""
 
     def __init__(self):
         super().__init__()
         self.cost = Cost()
+        self.live = 0
+        self._local = None    # the device of the DTensors' local shards
+        self.memo: dict = {}  # once_per_shape: key -> (Cost, output shapes)
+
+    def _free(self, n: int):
+        self.live -= n
+
+    def _hold(self, outs, ins):
+        for t in outs:
+            if any(t is a for a in ins):
+                continue                      # in place: no new buffer
+            n = _nbytes(t)
+            self.live += n
+            weakref.finalize(t, self._free, n)
+        self.cost.peak_bytes = max(self.cost.peak_bytes, self.live)
+
+    def record(self, func, args, kwargs, out, cost: "Cost"):
+        """Add one local op's FLOPs, bytes and wire bytes to `cost`."""
+        name = func.overloadpacket.__name__
+        outs = list(_tensors(out))
+        cost.bytes += (sum(_nbytes(t) for t in _tensors((args, kwargs)))
+                       + sum(_nbytes(t) for t in outs))
+        kind = COLLECTIVES.get(func.overloadpacket)
+        if kind is not None:
+            cost.add_coll(kind, wire_bytes(kind, sum(_nbytes(t) for t in outs),
+                                           _group_size(args)))
+        elif func in _MATMUL:
+            cost.flops += 2.0 * outs[0].numel() * _contracted(func, args)
+        elif name.rstrip("_") in _REDUCTIONS:
+            cost.flops += sum(_nbytes(t) for t in _tensors(args)) / 4.0
+        elif name not in _FREE:
+            cost.flops += sum(t.numel() for t in outs)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            if self._local is None:
+                self._local = next(a._local_tensor.device for a in args
+                                   if isinstance(a, DTensor))
+            return NotImplemented
         out = func(*args, **(kwargs or {}))
-        name = func.overloadpacket.__name__
-        if func.is_view or name in _VIEWS:
+        if func.is_view or func.overloadpacket.__name__ in _VIEWS:
             return out
-        outs = list(_tensors(out))
-        in_bytes = sum(_nbytes(t) for t in _tensors((args, kwargs)))
-        self.cost.bytes += in_bytes + sum(_nbytes(t) for t in outs)
-        if func in _MATMUL:
-            self.cost.flops += (2.0 * outs[0].numel()
-                                * _contracted(func, args))
-        elif name.rstrip("_") in _REDUCTIONS:
-            self.cost.flops += sum(_nbytes(t) for t in _tensors(args)) / 4.0
-        elif name not in _FREE:
-            self.cost.flops += sum(t.numel() for t in outs)
+        if self._local is not None and not any(
+                t.device == self._local and not isinstance(t, FakeTensor)
+                for t in _tensors(out)):
+            # DTensor's own bookkeeping: shard offsets on small host
+            # tensors, and a new op's output metadata, found by running it
+            # at the global shape on fake tensors
+            return out
+        self.record(func, args, kwargs, out, self.cost)
+        self._hold(list(_tensors(out)), list(_tensors((args, kwargs))))
         return out
+
+    def once_per_shape(self, fn, *args):
+        """``fn(*args)`` for a function of its tensors' shapes alone, run on
+        meta tensors: the first call for each (fn, shapes, dtypes) runs and
+        is counted as usual; a later one adds that call's cost (its peak on
+        top of what is live) and returns fresh meta outputs, without running
+        fn.  On tensors with data, or where autograd records (a replay would
+        leave no graph), fn(*args).  The dry run's counterpart of a scanned
+        body traced once; `distributed.sharding.per_shard` calls it on the
+        current dispatch mode when that mode has it."""
+        from torch.utils._python_dispatch import _disable_current_modes
+
+        tensors = [a for a in args if isinstance(a, torch.Tensor)]
+        if (not all(t.is_meta for t in tensors)
+                or (torch.is_grad_enabled() and any(t.requires_grad for t in tensors))):
+            return fn(*args)
+        key = (_fn_key(fn), tuple((tuple(a.shape), a.dtype) if isinstance(a, torch.Tensor)
+                                  else a for a in args))
+        c = self.cost
+        if key not in self.memo:
+            flops, nbytes, wire, live, peak = c.flops, c.bytes, c.coll_wire, self.live, c.peak_bytes
+            c.peak_bytes = live                 # the peak inside fn, from here
+            out = fn(*args)
+            delta = Cost(c.flops - flops, c.bytes - nbytes, peak_bytes=c.peak_bytes - live)
+            c.peak_bytes = max(peak, c.peak_bytes)
+            outs = out if isinstance(out, tuple) else (out,)
+            if c.coll_wire == wire:             # a body with collectives is not replayed
+                self.memo[key] = (delta, [(tuple(t.shape), t.dtype) for t in outs],
+                                  isinstance(out, tuple))
+            return out
+        delta, shapes, is_tuple = self.memo[key]
+        c.flops += delta.flops
+        c.bytes += delta.bytes
+        c.peak_bytes = max(c.peak_bytes, self.live + delta.peak_bytes)
+        with _disable_current_modes():      # the outputs' writes are in delta
+            outs = [torch.empty(shape, dtype=dtype, device="meta") for shape, dtype in shapes]
+        self._hold(outs, [])
+        return tuple(outs) if is_tuple else outs[0]
+
+
+def _fn_key(fn):
+    if isinstance(fn, functools.partial):
+        return (_fn_key(fn.func), fn.args, tuple(sorted(fn.keywords.items())))
+    return (fn.__module__, fn.__qualname__)
+
+
+@contextlib.contextmanager
+def alltoall_as_on_a_card():
+    """DTensor on a "cpu" mesh runs each Shard(i) -> Shard(j) step as an
+    all-gather of the whole result and a chunk of it (gloo has no
+    all-to-all); on a card's mesh it is one all-to-all of the shard.  Inside
+    this context that step is DTensor's all-to-all op on every mesh, so the
+    fake world's count is a card's: the shard's bytes at the all-to-all
+    formula, not n times them at the all-gather's."""
+    from torch.distributed.tensor import placement_types
+
+    def shard_dim_alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
+        return torch.ops._dtensor.shard_dim_alltoall(
+            input, gather_dim, shard_dim, mesh.get_group(mesh_dim).group_name)
+
+    fallback = placement_types.shard_dim_alltoall
+    placement_types.shard_dim_alltoall = shard_dim_alltoall
+    try:
+        yield
+    finally:
+        placement_types.shard_dim_alltoall = fallback
+
+
+def analyze(fn, *args) -> Cost:
+    """Per-device `Cost` of ``fn(*args)``, run once under the counter (see
+    the module's docstring); `args` are passed as they are."""
+    counter = _OpCounter()
+    with alltoall_as_on_a_card(), counter:
+        fn(*args)
+    return counter.cost
 
 
 def _meta(a):

@@ -35,20 +35,23 @@ then overwrites while they are still in the window when the prompt is
 longer than the window and not a multiple of it).  Where the prompt is no
 longer than the window, or a multiple of it, the two caches are equal.
 
-The JAX package's sharding annotations (`constrain`) have no counterpart
-on one card.
+The JAX package's sharding annotations (`constrain`) sit at the same
+points; they act only under the dry run's axis rules.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain, per_shard
 from repro_torch.models import layers as L
 from repro_torch.models.params import ParamDesc
 
 NEG_INF = -1e30
+HEADS = ("batch", None, "heads", None)   # q, k, v and o: (B, S, H, D)
 
 
 # ---------------------------------------------------------------------------
@@ -216,9 +219,28 @@ def _project_qkv(cfg: ModelConfig, p, x, kv_x=None):
 
 
 def _expand_kv(cfg: ModelConfig, k):
-    """Repeat kv heads to the q-head count: head h reads kv head h // group."""
+    """Repeat kv heads to the q-head count (head h reads kv head h // group)
+    and re-annotate the sharding."""
     H, Hkv = cfg.n_heads, cfg.n_kv_heads
-    return k.repeat_interleave(H // Hkv, dim=2) if H != Hkv else k
+    if H != Hkv:
+        k = k.repeat_interleave(H // Hkv, dim=2)
+    return constrain(k, HEADS)
+
+
+def _ring_tail(t, window: int):
+    """The last `window` rows of t (B, S, ...) along dim 1, the row of
+    position p in slot p mod window: a roll by S mod window."""
+    S = t.shape[1]
+    return t[:, S - window:].roll(S % window, 1)
+
+
+def _decode_per_shard(q, k, v, mask, scale):
+    """`decode_attention`, local in batch and heads: under the dry run's
+    rules each rank attends over its own shards (the mask (B, T) or (T,)
+    whole along T)."""
+    mask_axes = ("batch", None) if mask.dim() == 2 else (None,)
+    return per_shard(functools.partial(decode_attention, scale=scale),
+                     [HEADS] * 3 + [mask_axes], [HEADS], q, k, v, mask)
 
 
 def apply_attn(cfg: ModelConfig, p, x, *, window: int, causal: bool = True,
@@ -245,6 +267,7 @@ def apply_attn(cfg: ModelConfig, p, x, *, window: int, causal: bool = True,
             pos = torch.arange(S, device=x.device)[None]
             q = L.positions_for(cfg, q, pos)
             k = L.positions_for(cfg, k, pos)
+        q = constrain(q, HEADS)
         if kernel:
             from repro_torch.kernels import ops as kops
             o = kops.flash_attention(
@@ -253,26 +276,33 @@ def apply_attn(cfg: ModelConfig, p, x, *, window: int, causal: bool = True,
         else:
             ke, ve = _expand_kv(cfg, k), _expand_kv(cfg, v)
             if cross or not causal:
-                o = bidir_attention(q, ke, ve, scale=scale, kv_block=cfg.attn_kv_block)
+                core = functools.partial(bidir_attention, scale=scale,
+                                         kv_block=cfg.attn_kv_block)
             elif window > 0:
-                o = local_attention(q, ke, ve, scale=scale, window=window,
-                                    q_block=cfg.attn_q_block)
+                core = functools.partial(local_attention, scale=scale, window=window,
+                                         q_block=cfg.attn_q_block)
             else:
-                o = causal_attention(q, ke, ve, scale=scale,
-                                     kv_block=cfg.attn_kv_block)
+                core = functools.partial(causal_attention, scale=scale,
+                                         kv_block=cfg.attn_kv_block)
+            # local in batch and heads: under the dry run's rules each rank
+            # attends over its own shards
+            o = per_shard(core, [HEADS] * 3, [HEADS], q, ke, ve)
         out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(o.dtype))
         if mode == "train":
-            return x + out, None
+            return L.residual(x, out), None
         if window > 0 and not cross:
             # the last W positions, position p in slot p mod W: a roll by S mod W
             W = min(window, S)
-            r = S % W
             pos_c = torch.arange(S - W, S, device=x.device, dtype=torch.int32)
-            new_cache = {"k": k[:, S - W:].roll(r, 1), "v": v[:, S - W:].roll(r, 1),
-                         "pos": pos_c.roll(r, 0)[None].expand(B, W).contiguous()}
+            # local in batch and heads (and `roll` has no DTensor strategy in
+            # some torch versions): under the dry run's rules, per shard
+            tail = functools.partial(_ring_tail, window=W)
+            new_cache = {"k": per_shard(tail, [HEADS], [HEADS], k),
+                         "v": per_shard(tail, [HEADS], [HEADS], v),
+                         "pos": pos_c.roll(S % W, 0)[None].expand(B, W).contiguous()}
         else:
             new_cache = {"k": k, "v": v}
-        return x + out, new_cache
+        return L.residual(x, out), new_cache
 
     # ---- decode: S == 1 ----
     if cache is None:
@@ -280,8 +310,8 @@ def apply_attn(cfg: ModelConfig, p, x, *, window: int, causal: bool = True,
     if cross:
         q = _project(cfg, p, h, "q")
         T = cache["k"].shape[1]
-        o = decode_attention(q, _expand_kv(cfg, cache["k"]), _expand_kv(cfg, cache["v"]),
-                             torch.ones(T, dtype=torch.bool, device=x.device), scale)
+        o = _decode_per_shard(q, _expand_kv(cfg, cache["k"]), _expand_kv(cfg, cache["v"]),
+                              torch.ones(T, dtype=torch.bool, device=x.device), scale)
         out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(o.dtype))
         return x + out, cache
     q, k, v = _project_qkv(cfg, p, h)
@@ -303,7 +333,7 @@ def apply_attn(cfg: ModelConfig, p, x, *, window: int, causal: bool = True,
         T = cache["k"].shape[1]
         mask = torch.arange(T, device=x.device)[None] <= pos_t
     ke, ve = _expand_kv(cfg, cache["k"]), _expand_kv(cfg, cache["v"])
-    o = decode_attention(q, ke, ve, mask, scale)
+    o = _decode_per_shard(q, ke, ve, mask, scale)
     out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(o.dtype))
     return x + out, cache
 
@@ -353,6 +383,7 @@ def _mla_common(cfg: ModelConfig, p, h, positions):
     ckv_f = torch.matmul(h, p["wkv_a"].to(cdt))
     c_kv = _rms_latent(ckv_f[..., :kl], p["kv_norm"])
     k_rope = L.apply_rope(cfg, ckv_f[:, :, None, kl:], positions)[:, :, 0]
+    q_nope = constrain(q_nope, ("batch", None, "heads", None))
     return q_nope, q_rope, c_kv, k_rope
 
 
@@ -379,12 +410,15 @@ def apply_mla(cfg: ModelConfig, p, x, *, mode="train", cache=None, pos_t=None):
         q_nope, q_rope, c_kv, k_rope = _mla_common(cfg, p, h, pos)
         k_nope = torch.einsum("bsl,lhk->bshk", c_kv, p["wk_b"].to(cdt))
         v = torch.einsum("bsl,lhk->bshk", c_kv, p["wv_b"].to(cdt))
+        k_nope = constrain(k_nope, ("batch", None, "heads", None))
         q = torch.cat([q_nope, q_rope], dim=-1)
         k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, cfg.n_heads, dr)], dim=-1)
-        o = causal_attention(q, k, v, scale=scale, kv_block=cfg.attn_kv_block)
+        o = per_shard(functools.partial(causal_attention, scale=scale,
+                                        kv_block=cfg.attn_kv_block),
+                      [HEADS] * 3, [HEADS], q, k, v)
         out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(o.dtype))
         new_cache = {"c_kv": c_kv, "k_rope": k_rope} if mode == "prefill" else None
-        return x + out, new_cache
+        return L.residual(x, out), new_cache
 
     # ---- absorbed decode: S == 1 ----
     if cache is None:

@@ -9,6 +9,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.params import ParamDesc
 
 
@@ -71,7 +72,10 @@ def apply_norm(cfg: ModelConfig, p, x, eps: float = 1e-6):
     else:
         ms = xf.square().mean(dim=-1, keepdim=True)
         y = xf * torch.rsqrt(ms + eps) * p["scale"].float()
-    return y.to(x.dtype)
+    # the projections read the norm's output whole along the sequence: under
+    # the dry run's rules a sequence-sharded residual is gathered here (the
+    # JAX package leaves that gather to XLA); elsewhere a no-op
+    return constrain(y.to(x.dtype), ("batch",) + (None,) * (x.ndim - 1))
 
 
 def rms_head_norm(scale, x, eps: float = 1e-6):
@@ -79,6 +83,15 @@ def rms_head_norm(scale, x, eps: float = 1e-6):
     xf = x.float()
     ms = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
+
+
+def residual(x, out):
+    """x + out, a block's output added to the residual stream.  Under the dry
+    run's rules `out` is laid out as the stream is first, explicitly, so
+    that in the backward its gradient comes back gathered along the
+    sequence (a sequence-sharded gradient cannot be flattened into the
+    products' rows without a strided shard); elsewhere a plain add."""
+    return x + constrain(out, ("batch", "seq_act", None))
 
 
 # ---------------------------------------------------------------------------
@@ -111,7 +124,7 @@ def apply_ffn(cfg: ModelConfig, p, x):
     else:
         z = act(torch.matmul(h, p["w1"].to(cdt)) + p["b1"].to(cdt))
         out = torch.matmul(z, p["w2"].to(cdt)) + p["b2"].to(cdt)
-    return x + out
+    return residual(x, out)
 
 
 # ---------------------------------------------------------------------------
@@ -129,7 +142,7 @@ def embed_descs(cfg: ModelConfig):
 
 def apply_embed(cfg: ModelConfig, params, tokens):
     cdt = compute_dtype(cfg)
-    x = params["embed"]["table"][tokens].to(cdt)
+    x = F.embedding(tokens, params["embed"]["table"]).to(cdt)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cdt)
     return x

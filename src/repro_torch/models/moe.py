@@ -16,17 +16,26 @@ same buffer.  The buffer is laid out (E, c, B, d) rather than the
 reference's (B, E, c, d), so that each expert's slots of the whole batch
 are one contiguous (c * B, d) matrix and the expert products are three
 batched GEMMs with no permuting copy; it holds the same rows.  The
-reference's sharding annotations have no counterpart on one card.
+reference's two sharding annotations of the buffer sit at the same
+points (`EXPERT_ROWS`), on this layout's dims: the experts dim takes the
+data axis (expert-parallel) where it divides, and the batch, inside each
+expert's rows, stays whole (a batch shard there would be a strided layout
+that DTensor cannot flatten into the products' rows; the reference shards
+its leading batch dim instead).  They act only under the dry run's rules.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain, replicated
 from repro_torch.models import layers as L
 from repro_torch.models.params import ParamDesc
+
+EXPERT_ROWS = ("experts", None, None)   # the buffer, (E, c * B, d)
 
 
 def moe_descs(cfg: ModelConfig):
@@ -116,30 +125,48 @@ def _route_chunk(cfg: ModelConfig, p, h):
     c = capacity(t, K, E, m.capacity_factor)
     cdt = h.dtype
 
+    # scatters, cumulative counts and gathers by slot have no DTensor
+    # sharding strategy: under the dry run's rules they run on full replicas
+    # (`replicated`); elsewhere as they are
     probs, gate_w, gate_idx = route(cfg, p, h)
     # Switch balance loss, E * sum_e f_e * P_e per group, averaged over B
-    f = torch.zeros((B, E), device=h.device).scatter_add_(
-        1, gate_idx.reshape(B, K * t), torch.ones((B, K * t), device=h.device)) / (t * K)
+    f = replicated(functools.partial(_load, n_experts=E), gate_idx)
     aux = (E * (f * probs.mean(dim=1)).sum(-1)).mean()
 
-    slot, keep = slots(gate_idx, E, c)
+    slot, keep = replicated(functools.partial(slots, n_experts=E, c=c), gate_idx)
     # row of the (E * c + 1, B, d) buffer: slot * B + b (the last B rows are trash)
     rows = slot * B + torch.arange(B, device=h.device)[:, None, None]
-    xe = _dispatch(m.dispatch, h, rows, E * c * B).view(E, c * B, d)
+    xe = replicated(functools.partial(_dispatch, m.dispatch, n_rows=E * c * B), h, rows)
+    xe = constrain(xe.view(E, c * B, d), EXPERT_ROWS)
 
     act = L.act_fn(cfg.act)
     a = act(torch.bmm(xe, p["w1"].to(cdt))) * torch.bmm(xe, p["w3"].to(cdt))
     del xe
-    ye = torch.bmm(a, p["w2"].to(cdt)).view(E * c * B, d)
+    ye = constrain(torch.bmm(a, p["w2"].to(cdt)), EXPERT_ROWS).view(E * c * B, d)
     del a
+    return replicated(_combine, ye, rows, keep, gate_w), aux
 
-    y = h.new_zeros((B, t, d))
-    last = E * c * B - 1
-    for k in range(K):
+
+def _load(gate_idx, n_experts: int):
+    """The fraction of each group's K t assignments that go to each expert:
+    (B, t, K) -> (B, E) f32."""
+    B, t, K = gate_idx.shape
+    return torch.zeros((B, n_experts), device=gate_idx.device).scatter_add_(
+        1, gate_idx.reshape(B, K * t),
+        torch.ones((B, K * t), device=gate_idx.device)) / (t * K)
+
+
+def _combine(ye, rows, keep, gate_w):
+    """The K-way weighted gather back: y[b, i] = sum_k gate_w[b, i, k] *
+    ye[rows[b, k, i]] over the kept assignments."""
+    B, t, _ = gate_w.shape
+    y = ye.new_zeros((B, t, ye.shape[1]))
+    last = ye.shape[0] - 1
+    for k in range(rows.shape[1]):
         kept = keep[:, k, :, None]
         gathered = torch.where(kept, ye[rows[:, k].clamp(max=last)], 0)
-        y = y + gate_w[:, :, k, None].to(cdt) * gathered
-    return y, aux
+        y = y + gate_w[:, :, k, None].to(ye.dtype) * gathered
+    return y
 
 
 def apply_moe(cfg: ModelConfig, p, x):
@@ -164,4 +191,4 @@ def apply_moe(cfg: ModelConfig, p, x):
         act = L.act_fn(cfg.act)
         z = act(torch.matmul(h, sp["w1"].to(cdt))) * torch.matmul(h, sp["w3"].to(cdt))
         out = out + torch.matmul(z, sp["w2"].to(cdt))
-    return x + out, aux * m.aux_loss_weight
+    return L.residual(x, out), aux * m.aux_loss_weight

@@ -1,14 +1,21 @@
 """Parameter descriptor system.
 
 A model is described by a tree (nested dicts and lists) of `ParamDesc`
-leaves.  The same tree drives initialization (`init_tree`) and, through
-`params_from_numpy`, the loading of weights made elsewhere.
+leaves.  The same tree is the single source of truth for
 
-The JAX package also derives sharding specs from the logical axis names
-(`spec_tree`, `sharding_tree`, `resolve_spec`) and pins activation layouts
-with `distributed.sharding.constrain`.  One card has no mesh, so the port has
-no counterpart of either: the axis names are kept only as documentation, and
-the `constrain` calls of the model code are dropped.
+  * initialization          (`init_tree`; `params_from_numpy` loads weights
+    made elsewhere in the same layout)
+  * sharding specs          (`spec_tree`) and DTensor placements
+    (`placement_tree`) on a `DeviceMesh`
+
+Logical axis names on each parameter dim map to mesh axes through a rules
+dict (e.g. ``{"ff": "model", "vocab": "model", "batch": ("pod", "data")}``).
+A logical axis is only sharded when the dimension size is divisible by the
+product of the mesh axis sizes it maps to; otherwise it silently falls back
+to replication (this is what makes e.g. 28-head models lay out on a 16-way
+model axis).  A spec is a plain tuple with one entry per leading dim:
+None, a mesh-axis name, or a tuple of names, trailing Nones stripped, as
+the JAX package's `PartitionSpec` reads.
 """
 from __future__ import annotations
 
@@ -142,3 +149,129 @@ def params_from_numpy(tree, device):
 
 def count_params(tree) -> int:
     return sum(math.prod(d.shape) for d in tree_leaves(tree, is_leaf=is_desc))
+
+
+# ---------------------------------------------------------------------------
+# Sharding: logical axes -> mesh axes -> DTensor placements
+# ---------------------------------------------------------------------------
+
+def mesh_shape(mesh) -> dict[str, int]:
+    """{axis name: size} of a `DeviceMesh` (or any object with
+    `mesh_dim_names` and `shape`)."""
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def axis_size(mesh_shape: dict[str, int], mesh_axes) -> int:
+    """The total size of the mesh axes a spec entry names (1 for None)."""
+    if mesh_axes is None:
+        return 1
+    if isinstance(mesh_axes, str):
+        return mesh_shape.get(mesh_axes, 1)
+    return math.prod(mesh_shape.get(a, 1) for a in mesh_axes)
+
+
+def resolve_axes(shape, axes, rules: dict[str, Any],
+                 mesh_shape: dict[str, int]) -> tuple:
+    """Logical axes of a `shape` -> spec tuple, with divisibility fallback:
+    a dim is left unsharded when its rule maps to nothing, to mesh axes of
+    total size 1 or not dividing it, or to a mesh axis an earlier dim took."""
+    parts: list = []
+    used: set = set()
+    for dim, ax in zip(shape, axes):
+        mapped = rules.get(ax) if ax is not None else None
+        if mapped is None:
+            parts.append(None)
+            continue
+        size = axis_size(mesh_shape, mapped)
+        names = (mapped,) if isinstance(mapped, str) else tuple(mapped)
+        if size <= 1 or dim % size != 0 or any(n in used for n in names):
+            parts.append(None)
+            continue
+        used.update(names)
+        parts.append(mapped)
+    while parts and parts[-1] is None:
+        parts.pop()
+    return tuple(parts)
+
+
+def resolve_spec(d: ParamDesc, rules: dict[str, Any], mesh_shape: dict[str, int]) -> tuple:
+    """A descriptor's logical axes -> spec tuple (see `resolve_axes`)."""
+    return resolve_axes(d.shape, d.axes, rules, mesh_shape)
+
+
+def spec_tree(tree, rules: dict[str, Any], mesh):
+    ms = mesh_shape(mesh)
+    return tree_map_desc(lambda d: resolve_spec(d, rules, ms), tree)
+
+
+def placements(spec: tuple, mesh) -> list:
+    """A spec tuple -> one DTensor placement per mesh dim: `Shard(dim)` on
+    each mesh axis that tensor dim `dim` names, `Replicate()` elsewhere (the
+    counterpart of the JAX package's `NamedSharding(mesh, spec)`).  A dim
+    named by several mesh axes is split over them in the mesh's order."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = list(mesh.mesh_dim_names)
+    out: list = [Replicate()] * len(names)
+    for dim, ax in enumerate(spec):
+        if ax is None:
+            continue
+        for name in ((ax,) if isinstance(ax, str) else ax):
+            out[names.index(name)] = Shard(dim)
+    return out
+
+
+def placement_tree(tree, rules: dict[str, Any], mesh):
+    ms = mesh_shape(mesh)
+    return tree_map_desc(lambda d: placements(resolve_spec(d, rules, ms), mesh), tree)
+
+
+def local_shape(shape, spec: tuple, mesh_shape: dict[str, int]) -> tuple[int, ...]:
+    """The shape of one device's shard of a tensor laid out by `spec`."""
+    return tuple(dim // axis_size(mesh_shape, spec[i] if i < len(spec) else None)
+                 for i, dim in enumerate(shape))
+
+
+def contiguous_strides(shape) -> tuple[int, ...]:
+    """The strides of a contiguous tensor of `shape`."""
+    out, acc = [], 1
+    for n in reversed(shape):
+        out.append(acc)
+        acc *= n
+    return tuple(reversed(out))
+
+
+# ---------------------------------------------------------------------------
+# Default logical-axis -> mesh-axis rules
+# ---------------------------------------------------------------------------
+
+def default_rules(multi_pod: bool = False, *, shard_layers_over_data: bool = False,
+                  seq_axis: bool = False) -> dict[str, Any]:
+    """Baseline tensor-parallel rules.
+
+    batch      -> data (and pod) axes  (pure DP)
+    vocab/ff/heads/inner/rnn -> model axis (TP)
+    layers     -> optionally data (ZeRO-3-style param sharding)
+    seq        -> data (sequence-parallel KV cache for batch=1 long context)
+    """
+    data_axes = ("pod", "data") if multi_pod else ("data",)
+    rules: dict[str, Any] = {
+        "batch": data_axes if len(data_axes) > 1 else data_axes[0],
+        "vocab": "model",
+        "embed": None,
+        "heads": "model",
+        "kv_heads": "model",
+        "head_dim": None,
+        "ff": "model",
+        "experts": "data",        # expert-parallel over the data axis
+        "expert_ff": "model",     # + TP inside experts
+        "inner": "model",         # mamba d_inner
+        "rnn": "model",           # rg-lru width
+        "state": None,
+        "lora": None,
+        "layers": data_axes[-1] if shard_layers_over_data else None,
+        "kv_seq": data_axes[-1] if seq_axis else None,
+        "seq_act": None,          # activation sequence sharding (train/prefill)
+        "frames": None,
+    }
+    return rules

@@ -14,10 +14,13 @@ recurrence through the hand-written kernel
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain, per_shard
 from repro_torch.models import layers as L
 from repro_torch.models.params import ParamDesc
 from repro_torch.models.ssm import causal_conv, conv_step, linear_scan, n_chunks
@@ -90,6 +93,7 @@ def apply_rglru(cfg: ModelConfig, p, x, *, mode="prefill", cache=None, pos_t=Non
     h = L.apply_norm(cfg, p["norm"], x)
     gate = F.gelu(torch.einsum("bsd,dw->bsw", h, p["in_gate"].to(cdt)), approximate="tanh")
     u = torch.einsum("bsd,dw->bsw", h, p["in_x"].to(cdt))
+    u = constrain(u, ("batch", None, "rnn"))
 
     if mode in ("train", "prefill"):
         if mode == "train" and cfg.use_pallas:
@@ -103,9 +107,15 @@ def apply_rglru(cfg: ModelConfig, p, x, *, mode="prefill", cache=None, pos_t=Non
             h0 = torch.zeros((x.shape[0], at.shape[2]), device=x.device)
             y, h_fin = kops.rglru_scan(at, bt, h0)
         else:
-            y, h_fin = rglru_scan(uc, a_gate, x_gate, p["a_param"], c=r.c, chunk=r.chunk)
+            # local in batch and width: under the dry run's rules each rank
+            # scans its own shards
+            y, h_fin = per_shard(
+                functools.partial(rglru_scan, c=r.c, chunk=r.chunk),
+                [("batch", None, "rnn")] * 3 + [("rnn",)],
+                [("batch", None, "rnn"), ("batch", "rnn")],
+                uc, a_gate, x_gate, p["a_param"])
         out = torch.einsum("bsw,wd->bsd", y.to(cdt) * gate, p["out_proj"].to(cdt))
-        return x + out, (None if mode == "train" else {"state": h_fin, "conv": tail})
+        return L.residual(x, out), (None if mode == "train" else {"state": h_fin, "conv": tail})
 
     if cache is None:
         raise ValueError("decode needs a cache")

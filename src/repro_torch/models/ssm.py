@@ -10,10 +10,13 @@ instead; decode is one plain step, as in the reference.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain, per_shard
 from repro_torch.models import layers as L
 from repro_torch.models.params import ParamDesc
 
@@ -55,13 +58,14 @@ def mamba_cache_descs(cfg: ModelConfig, batch: int):
 
 def causal_conv(x, w, b):
     """x: (B, S, D); w: (K, D) depthwise causal conv -> (out, tail), where
-    tail (B, K-1, D) is the last K-1 inputs (the decode cache)."""
+    tail (B, K-1, D) is the last K-1 inputs (the decode cache), a copy, so
+    that the cache does not hold the padded input alive."""
     K, S = w.shape[0], x.shape[1]
     xp = torch.cat([x.new_zeros((x.shape[0], K - 1, x.shape[2])), x], dim=1)
     out = 0
     for i in range(K):
         out = out + xp[:, i:i + S] * w[i][None, None]
-    return out + b[None, None], xp[:, S:]
+    return out + b[None, None], xp[:, S:].clone()
 
 
 def conv_step(tail, x, w, b):
@@ -122,6 +126,9 @@ def _gates(cfg: ModelConfig, p, xc):
     cdt = L.compute_dtype(cfg)
     dtr, N = dt_rank(cfg), cfg.ssm.d_state
     proj = torch.einsum("bsd,de->bse", xc, p["x_proj"].to(cdt))
+    # the product sums over the sharded width: reduce it before it is cut
+    # (a no-op outside the dry run)
+    proj = constrain(proj, ("batch", None, None))
     dt_r, Bm, Cm = proj[..., :dtr], proj[..., dtr:dtr + N], proj[..., dtr + N:]
     dt = F.softplus(torch.einsum("bsr,rd->bsd", dt_r, p["dt_proj"].to(cdt))
                     + p["dt_bias"].to(cdt))
@@ -141,7 +148,10 @@ def apply_mamba(cfg: ModelConfig, p, x, *, mode="prefill", cache=None, pos_t=Non
     din = s.expand * x.shape[2]
     h = L.apply_norm(cfg, p["norm"], x)
     xz = torch.einsum("bsd,de->bse", h, p["in_proj"].to(cdt))
-    xin, z = xz[..., :din], xz[..., din:]
+    xz = constrain(xz, ("batch", None, "inner"))
+    # slicing the sharded width gathers xz whole; under the dry run's rules
+    # the halves are sharded again (locally) so what follows stays sharded
+    xin, z = (constrain(t, ("batch", None, "inner")) for t in (xz[..., :din], xz[..., din:]))
     A = -torch.exp(p["A_log"].float())
 
     if mode in ("train", "prefill"):
@@ -154,10 +164,16 @@ def apply_mamba(cfg: ModelConfig, p, x, *, mode="prefill", cache=None, pos_t=Non
             from repro_torch.kernels import ops as kops
             y, h_fin = kops.mamba_scan(xc, dt, A, Bm, Cm)
         else:
-            y, h_fin = selective_scan(xc, dt, A, Bm, Cm, chunk=s.chunk)
+            # local in batch and width: under the dry run's rules each rank
+            # scans its own shards
+            y, h_fin = per_shard(
+                functools.partial(selective_scan, chunk=s.chunk),
+                [("batch", None, "inner")] * 2 + [("inner", None)] + [("batch", None, None)] * 2,
+                [("batch", None, "inner"), ("batch", "inner", None)],
+                xc, dt, A, Bm, Cm)
         y = y.to(cdt) + xc * p["D"].to(cdt)
         out = torch.einsum("bsd,de->bse", y * F.silu(z), p["out_proj"].to(cdt))
-        return x + out, (None if mode == "train" else {"state": h_fin, "conv": tail})
+        return L.residual(x, out), (None if mode == "train" else {"state": h_fin, "conv": tail})
 
     if cache is None:
         raise ValueError("decode needs a cache")

@@ -27,6 +27,7 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import constrain, gather_last
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
@@ -132,6 +133,7 @@ def apply_layer(cfg: ModelConfig, spec: LayerSpec, p, x, *, mode, cache, pos_t,
         x = L.apply_ffn(cfg, p["ffn"], x)
     elif spec.ffn == "moe":
         x, aux = M.apply_moe(cfg, p["moe"], x)
+    x = constrain(x, ("batch", "seq_act", None))
     if mode == "train":
         if cfg.cotangent_dtype:
             # pin the residual stream's cotangent dtype at every layer
@@ -256,6 +258,7 @@ def run_encoder(cfg: ModelConfig, params, enc_feats):
     F_ = enc_feats.shape[1]
     x = enc_feats.to(cdt) + L.sinusoidal_pos(
         cfg.d_model, torch.arange(F_, device=enc_feats.device))[None].to(cdt)
+    x = constrain(x, ("batch", "seq_act", None))
     x, _, _ = run_blocks(cfg, params["encoder"]["blocks"], x, mode="train",
                          block_cfgs=(((ENC_SPEC,), cfg.n_enc_layers),))
     return L.apply_norm(cfg, params["encoder"]["final_norm"], x)
@@ -270,9 +273,12 @@ def embed_tokens(cfg: ModelConfig, params, tokens, pos_offset=0):
     pos_offset, pos_offset + 1, ... added."""
     x = L.apply_embed(cfg, params, tokens)
     if cfg.pos_embed == "sinusoidal":
+        # under the dry run's rules the embedding's partial sums over the
+        # vocab-sharded table are reduced before anything is added to them
+        x = constrain(x, ("batch", "seq_act", None))
         pos = pos_offset + torch.arange(tokens.shape[1], device=tokens.device)
         x = x + L.sinusoidal_pos(cfg.d_model, pos)[None].to(x.dtype)
-    return x
+    return constrain(x, ("batch", "seq_act", None))
 
 
 def _logits(cfg: ModelConfig, params, x):
@@ -311,7 +317,7 @@ def chunked_ce_loss(cfg: ModelConfig, params, x, labels):
                                  torch.tensor(A.NEG_INF, dtype=ldt, device=x.device))
         logits = logits.float()
         lse = torch.logsumexp(logits, dim=-1)
-        ll = torch.gather(logits, -1, y_c[..., None].long())[..., 0]
+        ll = gather_last(logits, y_c[..., None].long())[..., 0]
         return (lse - ll).sum()
 
     total = torch.zeros((), device=x.device)

@@ -4,12 +4,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import transformer as T
 from repro_torch.models.params import tree_leaves, tree_map
 from repro_torch.optim import adamw
 
 
-def make_train_step(cfg: ModelConfig, hp: adamw.Hyper):
+def make_train_step(cfg: ModelConfig, hp: adamw.Hyper, grad_placements=None):
     """Returns train_step(params, opt_state, batch, step) -> (params,
     opt_state, metrics), with `params` and `opt_state` updated in place.
 
@@ -20,8 +21,13 @@ def make_train_step(cfg: ModelConfig, hp: adamw.Hyper):
     gradients and losses are summed and divided by the count, and their
     metrics averaged.  Then the gradients are clipped to hp.clip in global
     norm and AdamW is applied.  metrics: loss, ce, aux, grad_norm, lr (0-dim
-    tensors).  The reference's `grad_shardings` (a layout for the gradient
-    reductions across a mesh) has no counterpart on one card.
+    tensors).
+
+    grad_placements: optional tree of DTensor placement lists matching
+    params (the reference's `grad_shardings`): each gradient is
+    redistributed to its placements, so that the weight-gradient reductions
+    become reduce-scatters into that layout instead of full all-reduces.
+    Only for DTensor parameters on a mesh (the dry run).
     """
 
     def grad_fn(params, batch):
@@ -32,8 +38,11 @@ def make_train_step(cfg: ModelConfig, hp: adamw.Hyper):
         loss, metrics = T.forward_train(cfg, tracked, batch)
         grads = torch.autograd.grad(loss, leaves)
         by_leaf = {id(p): g for p, g in zip(tree_leaves(params), grads)}
-        return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
-                tree_map(lambda p: by_leaf[id(p)], params))
+        grads = tree_map(lambda p: by_leaf[id(p)], params)
+        if grad_placements is not None:
+            grads = tree_map(lambda g, pl: g.redistribute(g.device_mesh, pl),
+                             grads, grad_placements)
+        return (loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads)
 
     def train_step(params, opt_state, batch, step):
         if hp.microbatches > 1:
@@ -82,6 +91,9 @@ def make_serve_step(cfg: ModelConfig):
     @torch.no_grad()
     def serve_step(params, caches, tokens, pos_t):
         logits, new_caches = T.decode_step(cfg, params, caches, tokens, pos_t)
+        # under the dry run's rules the argmax reads the vocab whole (a no-op
+        # elsewhere)
+        logits = constrain(logits, ("batch", None, None))
         nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
         return nxt, new_caches
 
