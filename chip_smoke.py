@@ -85,12 +85,15 @@ its last line):
      the card; full-width qwen2-1.5b's f32 parameters `reshard_tree`d onto
      it come back bit-equal; the seconds logged; the group destroyed;
   4g. dryrun: `python -m repro_torch.launch.dryrun` for qwen2-1.5b x
-     train_4k, prefill_32k and decode_32k and falcon-mamba-7b x prefill_32k
-     on the 16 x 16 fake world, one process per cell, started before 4e
-     (the host traces them while the card compresses); each must exit 0;
-     each cell's per-device GB and three roofline terms are logged (H100
-     cluster predictions, not measurements); no kernel is launched in
-     4e-4g;
+     train_4k, prefill_32k and decode_32k, falcon-mamba-7b x prefill_32k
+     and granite-moe-3b-a800m x prefill_32k on the 16 x 16 fake world (the
+     sharded step's four partitions of its own: query rows for heads that
+     do not divide the model axis, split-T decode, batch-local MoE
+     dispatch, Mamba's in_proj halves), one process per cell, started
+     before 4e (the host traces them while the card compresses); each must
+     exit 0; each cell's per-device GB, FLOPs, wire bytes, three roofline
+     terms and dominant term are logged (H100 cluster predictions, not
+     measurements); no kernel is launched in 4e-4g;
   5. time each kernel at its serving shape beside its bound, its plain
      version and, where one PyTorch call computes the same function, that
      call; for the kernels that take exponentials (flash attention, the
@@ -195,7 +198,8 @@ TIER_TOL = dict(rtol=1e-4, atol=1e-5)
 COMPRESSION_ARCH, COMPRESSION_STEPS, TOPK_FRAC = "qwen2-1.5b", 3, 0.01
 # the dry run's cells: full width on the 16 x 16 fake world, one process each
 DRYRUN_CELLS = (("qwen2-1.5b", "train_4k"), ("qwen2-1.5b", "prefill_32k"),
-                ("qwen2-1.5b", "decode_32k"), ("falcon-mamba-7b", "prefill_32k"))
+                ("qwen2-1.5b", "decode_32k"), ("falcon-mamba-7b", "prefill_32k"),
+                ("granite-moe-3b-a800m", "prefill_32k"))
 DRYRUN_TIMEOUT_S = 400
 # tests/test_kernels.py's tolerances
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}                 # flash attention, RG-LRU scan
@@ -1220,7 +1224,8 @@ def phase_dryrun(started):
         log("dryrun_cell", arch=arch, shape=shape, mesh=rec["mesh"], torch=lines[0],
             trace_s=rec["compile_s"], arg_gb=m["argument_bytes"] / 1e9,
             out_gb=m["output_bytes"] / 1e9, temp_gb=m["temp_bytes"] / 1e9,
-            fits_80gb=m["fits_80gb"], compute_s=r["compute_term_s"],
+            fits_80gb=m["fits_80gb"], flops=r["hlo_flops_per_device"],
+            wire_bytes=r["collective_bytes_per_device"], compute_s=r["compute_term_s"],
             memory_s=r["memory_term_s"], collective_s=r["collective_term_s"],
             dominant=r["dominant"], useful=r.get("useful_flops_ratio"),
             mfu_bound=r.get("mfu_bound"), collectives=r["collective_ops"])

@@ -13,8 +13,10 @@ made on the host; none is a measurement.
 
 With `--against DIR`, it prints instead each cell found in both
 directories beside the other's: the ratio of its FLOPs, HBM bytes, temp
-bytes and collective wire bytes to the other's, both dominant terms and
-both "fits 80 GB" verdicts.  DIR holds JSON with the same keys: the JAX
+bytes and collective wire bytes to the other's, both memory and collective
+terms, both dominant terms and
+both "fits 80 GB" verdicts, then the ratios' medians and the number of
+cells whose dominant terms and fits agree.  DIR holds JSON with the same keys: the JAX
 package's dry run (`python -m repro.launch.dryrun --all --both-meshes
 --out DIR`) or this one's under another torch.  The other's dominant term
 and fit are worked out from its counts against the same `HW`, so no TPU
@@ -131,6 +133,7 @@ def _counts(rec: dict) -> dict:
     roof = roofline({"flops": flops, "bytes accessed": nbytes},
                     CollectiveStats(per_device_wire_bytes=wire), rec["n_chips"])
     return {"flops": flops, "bytes": nbytes, "temp": m["temp_bytes"], "wire": wire,
+            "memory_s": roof["memory_term_s"], "collective_s": roof["collective_term_s"],
             "dominant": roof["dominant"],
             "fits": m["argument_bytes"] + m["temp_bytes"] <= HW["hbm_bytes"]}
 
@@ -140,8 +143,8 @@ def against(dryrun_dir: str, other_dir: str) -> list[str]:
     over the other's, and each one's dominant term and fit (this / other)."""
     other = {(c["arch"], c["shape"], c["mesh"]): c for c in load_cells(other_dir)}
     lines = ["| arch | shape | mesh | FLOPs | HBM bytes | temp bytes | collective bytes "
-             "| temp GB | dominant | fits 80 GB |",
-             "| --- | --- | --- | --- | --- | --- | --- | --- | --- | --- |"]
+             "| temp GB | memory s | collective s | dominant | fits 80 GB |",
+             "| --- | --- | --- | --- | --- | --- | --- | --- | --- | --- | --- | --- |"]
 
     def ratio(a, b):
         return f"{a / b:.3f}" if b else ("—" if not a else "inf")
@@ -155,9 +158,31 @@ def against(dryrun_dir: str, other_dir: str) -> list[str]:
             f"| {' | '.join(key)} | {ratio(a['flops'], b['flops'])} "
             f"| {ratio(a['bytes'], b['bytes'])} | {ratio(a['temp'], b['temp'])} "
             f"| {ratio(a['wire'], b['wire'])} | {a['temp'] / 1e9:.2f} / {b['temp'] / 1e9:.2f} "
+            f"| {a['memory_s']:.4g} / {b['memory_s']:.4g} "
+            f"| {a['collective_s']:.4g} / {b['collective_s']:.4g} "
             f"| {a['dominant']} / {b['dominant']} "
             f"| {'yes' if a['fits'] else 'no'} / {'yes' if b['fits'] else 'no'} |")
     return lines
+
+
+def agreement(dryrun_dir: str, other_dir: str) -> str:
+    """One line under `against`'s table: the median of each count's ratio
+    over the cells in both directories, and in how many of them the
+    dominant terms and the fits agree."""
+    import statistics
+
+    other = {(c["arch"], c["shape"], c["mesh"]): c for c in load_cells(other_dir)}
+    pairs = [(_counts(c), _counts(other[(c["arch"], c["shape"], c["mesh"])]))
+             for c in load_cells(dryrun_dir) if (c["arch"], c["shape"], c["mesh"]) in other]
+    if not pairs:
+        return "no cell in both directories"
+    med = {k: statistics.median(a[k] / b[k] for a, b in pairs if b[k])
+           for k in ("flops", "bytes", "temp", "wire")}
+    return (f"{len(pairs)} cells; medians of the ratios: FLOPs {med['flops']:.3f}, "
+            f"HBM bytes {med['bytes']:.3f}, temp bytes {med['temp']:.3f}, "
+            f"wire bytes {med['wire']:.3f}; dominant agrees in "
+            f"{sum(a['dominant'] == b['dominant'] for a, b in pairs)}, fits in "
+            f"{sum(a['fits'] == b['fits'] for a, b in pairs)}")
 
 
 def main(argv=None) -> int:
@@ -167,6 +192,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.against:
         print("\n".join(against(args.dir, args.against)))
+        print(agreement(args.dir, args.against))
         return 0
     rows = table(args.dir)
     fails = failures(args.dir)

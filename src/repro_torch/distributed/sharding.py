@@ -8,10 +8,13 @@ placements (the counterpart of the JAX package's
 `jax.lax.with_sharding_constraint`); otherwise they are no-ops, so the
 served and trained paths on one card see none of this.
 
-`replicated` runs an op that DTensor has no sharding strategy for
-(`scatter_add_`, `index_add_`, writes into a cache slice) on full replicas,
-and `gather_last` picks one entry of a row whose last dim is sharded (the
-loss's label logit over a vocab-sharded row): also only under active rules.
+`per_shard` runs a function on each rank's local shards, `write_row`
+writes one row into a cache sharded along its rows (only the rank that
+holds the row writes), and `gather_last` picks one entry of a row whose
+last dim is sharded (the loss's label logit over a vocab-sharded row):
+also only under active rules.  `active_rules` lets model code choose a
+partition of its own (query rows, split-T decode) where the rules' layout
+alone would replicate the work.
 """
 from __future__ import annotations
 
@@ -57,6 +60,13 @@ def _is_dtensor(x) -> bool:
     return isinstance(x, DTensor)
 
 
+def active_rules(*xs) -> AxisRules | None:
+    """The active rules when any of `xs` is a DTensor, else None: the test
+    by which a sharded path is taken only under the dry run's rules."""
+    r = current_rules()
+    return r if r is not None and any(_is_dtensor(x) for x in xs) else None
+
+
 def constrain(x, axes):
     """Annotate activation x with logical axes; a no-op without active rules
     or when x is not a DTensor."""
@@ -68,15 +78,25 @@ def constrain(x, axes):
     return x.redistribute(r.mesh, placements(r.spec(axes, x.shape), r.mesh))
 
 
+def _names(mesh_axes) -> tuple:
+    if mesh_axes is None:
+        return ()
+    return (mesh_axes,) if isinstance(mesh_axes, str) else tuple(mesh_axes)
+
+
 def per_shard(fn, in_axes, out_axes, *args):
     """fn on each rank's shards, for a computation that is local along every
     dim its logical axes shard (a scan over the sequence, elementwise in
     batch and width).
 
-    Under active rules, each DTensor argument is first laid out by its
-    entry of `in_axes`, fn runs once on the local shards, and each of its
-    outputs becomes a DTensor sharded as the inputs' dims of the same
-    logical axis were (an axis no input shards stays whole): one DTensor
+    Under active rules, each DTensor argument (and each plain tensor, taken
+    as replicated) is first laid out by its entry of `in_axes`, fn runs
+    once on the local shards, and each of its outputs becomes a DTensor
+    sharded as the inputs' dims of the same logical axis were (an axis no
+    input shards stays whole).  An input
+    whole along a mesh dim that splits an output gets its gradient as a
+    partial sum over that dim's ranks, reduced where DTensor next needs it
+    whole (k and v gathered for a rank's query rows).  One DTensor
     dispatch in place of one per op inside fn, and, under the dry run's
     counter, one trace of fn per shape (the current dispatch mode's
     `once_per_shape`, where it has one).  Otherwise fn(*args).
@@ -84,16 +104,30 @@ def per_shard(fn, in_axes, out_axes, *args):
     r = current_rules()
     if r is None or not any(_is_dtensor(a) for a in args):
         return fn(*args)
-    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor import DTensor, Partial, Replicate
 
-    local, mapped = [], {}
+    specs, mapped = [], {}
     for a, axes in zip(args, in_axes):
-        if _is_dtensor(a):
-            spec = r.spec(axes, a.shape)
-            for i, ax in enumerate(axes):
-                if ax is not None:
-                    mapped.setdefault(ax, spec[i] if i < len(spec) else None)
-            a = a.redistribute(r.mesh, placements(spec, r.mesh)).to_local()
+        spec = r.spec(axes, a.shape) if isinstance(a, torch.Tensor) else None
+        for i, ax in enumerate(axes if spec is not None else ()):
+            if ax is not None:
+                mapped.setdefault(ax, spec[i] if i < len(spec) else None)
+        specs.append(spec)
+    # a mesh dim that splits an output but not an input: each rank's
+    # gradient of that input is a partial sum over the dim's ranks
+    split = {n for axes in out_axes for ax in axes if ax is not None
+             for n in _names(mapped.get(ax))}
+    local = []
+    for a, spec in zip(args, specs):
+        if spec is not None and (spec or _is_dtensor(a)):
+            pl = placements(spec, r.mesh)
+            if not _is_dtensor(a):
+                # a plain tensor counts as replicated, as under
+                # `implicit_replication`
+                a = DTensor.from_local(a, r.mesh, [Replicate()] * r.mesh.ndim, run_check=False)
+            grad = [Partial() if p.is_replicate() and name in split else p
+                    for p, name in zip(pl, r.mesh.mesh_dim_names)]
+            a = a.redistribute(r.mesh, pl).to_local(grad_placements=grad)
         local.append(a)
     run = getattr(_get_current_dispatch_mode(), "once_per_shape", None)
     out = fn(*local) if run is None else run(fn, *local)
@@ -112,31 +146,29 @@ def per_shard(fn, in_axes, out_axes, *args):
     return tuple(wrapped) if isinstance(out, tuple) else wrapped[0]
 
 
-def replicated(fn, *args):
-    """fn(*args) for an op with no DTensor sharding strategy.
+def write_row(t, index: int, row):
+    """``t[:, index] = row`` in place: one row of a cache (B, T, ...).
 
-    Under active rules, DTensor arguments are gathered to full replicas, fn
-    runs on their local tensors, and every tensor it returns comes back as a
-    replicated DTensor on the rules' mesh.  Otherwise fn(*args) as it is.
-    """
+    Under active rules with `t` a DTensor, each rank writes into its own
+    shard, and only the rank whose slice of dim 1 holds `index`; `row` is
+    first laid out as `t` is but along dim 1 (DTensor's own write into a
+    row of a dim it shards gathers the whole cache).  Otherwise the plain
+    write."""
     r = current_rules()
-    if r is None or not any(_is_dtensor(a) for a in args):
-        return fn(*args)
-    from torch.distributed.tensor import DTensor, Replicate
+    if r is None or not _is_dtensor(t):
+        t[:, index] = row
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
-    rep = [Replicate()] * r.mesh.ndim
-    local = [a.redistribute(r.mesh, rep).to_local() if _is_dtensor(a) else a
-             for a in args]
-    out = fn(*local)
-
-    def wrap(t):
-        if isinstance(t, torch.Tensor):
-            return DTensor.from_local(t, r.mesh, rep, run_check=False)
-        return t
-
-    if isinstance(out, tuple):
-        return tuple(wrap(t) for t in out)
-    return wrap(out)
+    pl = [Replicate() if p.is_shard(1) else
+          Shard(p.dim - 1) if p.is_shard() and p.dim > 1 else p for p in t.placements]
+    if _is_dtensor(row):
+        row = row.redistribute(r.mesh, pl).to_local()
+    local = t.to_local()
+    _, offset = compute_local_shape_and_global_offset(t.shape, r.mesh, t.placements)
+    if 0 <= index - offset[1] < local.shape[1]:
+        local[:, index - offset[1]] = row
 
 
 def gather_last(x, index):

@@ -79,3 +79,40 @@ def report(fn, *args, top: int = 12) -> str:
     for r in byts[:top]:
         lines.append(f"  {r[0]:.3e}  x{r[1]:<5d} per={r[2]:.2e} {r[3]:<18s} {r[4]}")
     return "\n".join(lines)
+
+
+def cell_report(arch: str, shape: str, *, multi_pod: bool = False, top: int = 12) -> str:
+    """`report` of one dry-run cell's step (`launch/dryrun.py`), on the
+    production mesh of a fake world, after a first pass that fills
+    DTensor's caches (as `run_cell` does)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.distributed.sharding import AxisRules, use_axis_rules
+    from repro_torch.launch.dryrun import _step_call
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.specs import input_specs
+
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    spec = input_specs(arch, shape, mesh)
+    call = _step_call(spec, False)
+    with implicit_replication(), use_axis_rules(AxisRules(spec.rules, mesh)):
+        op_cost.analyze(call)
+        return report(call, top=top)
+
+
+def main(argv=None):
+    import argparse
+
+    ap = argparse.ArgumentParser(description="collectives and byte-heavy ops of one "
+                                             "dry-run cell, by (aten op, call site)")
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--shape", required=True)
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--top", type=int, default=12)
+    args = ap.parse_args(argv)
+    print(cell_report(args.arch, args.shape, multi_pod=args.multi_pod, top=args.top))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

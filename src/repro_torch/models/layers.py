@@ -62,7 +62,9 @@ def norm_descs(cfg: ModelConfig, d: int | None = None):
     return out
 
 
-def apply_norm(cfg: ModelConfig, p, x, eps: float = 1e-6):
+def apply_norm(cfg: ModelConfig, p, x, eps: float = 1e-6, axes=None):
+    """The block's norm of x; under the dry run's rules laid out by `axes`,
+    by default ("batch", None, ...): see below."""
     xf = x.float()
     if cfg.norm == "layernorm":
         mu = xf.mean(dim=-1, keepdim=True)
@@ -75,7 +77,7 @@ def apply_norm(cfg: ModelConfig, p, x, eps: float = 1e-6):
     # the projections read the norm's output whole along the sequence: under
     # the dry run's rules a sequence-sharded residual is gathered here (the
     # JAX package leaves that gather to XLA); elsewhere a no-op
-    return constrain(y.to(x.dtype), ("batch",) + (None,) * (x.ndim - 1))
+    return constrain(y.to(x.dtype), axes or ("batch",) + (None,) * (x.ndim - 1))
 
 
 def rms_head_norm(scale, x, eps: float = 1e-6):

@@ -12,16 +12,20 @@ always-on dense GLU branch.
 Two dispatch modes, as in the reference (`MoEConfig.dispatch`): "scatter"
 adds the tokens into the expert buffer with `index_add_`; "index" scatters
 only the int32 slot -> token map and gathers the tokens.  Both give the
-same buffer.  The buffer is laid out (E, c, B, d) rather than the
+same buffer.  The buffer is laid out (E, B, c, d) rather than the
 reference's (B, E, c, d), so that each expert's slots of the whole batch
-are one contiguous (c * B, d) matrix and the expert products are three
-batched GEMMs with no permuting copy; it holds the same rows.  The
-reference's two sharding annotations of the buffer sit at the same
-points (`EXPERT_ROWS`), on this layout's dims: the experts dim takes the
-data axis (expert-parallel) where it divides, and the batch, inside each
-expert's rows, stays whole (a batch shard there would be a strided layout
-that DTensor cannot flatten into the products' rows; the reference shards
-its leading batch dim instead).  They act only under the dry run's rules.
+are one contiguous (B * c, d) matrix and the expert products are three
+batched GEMMs with no permuting copy; it holds the same rows.
+
+Under the dry run's rules the slot count, the dispatch and the combine run
+on each rank's own batch rows (`per_shard`; capacity is per sequence
+group, so no rank needs another's), as the reference's per-row vmap does.
+The reference's two sharding annotations of the buffer sit at the same
+points (`EXPERT_ROWS`), its dims in this layout's order: the experts dim
+takes the data axis (expert-parallel, reached by an all-to-all) where it
+divides, else the batch does; on the multi-pod mesh the batch keeps the
+pod axis beside expert-parallel data (`_expert_rows`).  Elsewhere all of
+this is the plain code.
 """
 from __future__ import annotations
 
@@ -31,11 +35,12 @@ import math
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import constrain, replicated
+from repro_torch.distributed.sharding import active_rules, per_shard
 from repro_torch.models import layers as L
-from repro_torch.models.params import ParamDesc
+from repro_torch.models.params import ParamDesc, axis_size, placements
 
-EXPERT_ROWS = ("experts", None, None)   # the buffer, (E, c * B, d)
+EXPERT_ROWS = ("experts", "batch", None, None)   # the buffer, (E, B, c, d)
+ROWS = ("batch", None, None)                      # per batch row: (B, t, .) or (B, K, t)
 
 
 def moe_descs(cfg: ModelConfig):
@@ -98,11 +103,23 @@ def slots(gate_idx, n_experts: int, c: int):
     return slot, keep
 
 
-def _dispatch(mode: str, h, rows, n_rows: int):
-    """The expert buffer's first `n_rows` rows (the trash rows cut off):
-    row rows[b, k, i] holds h[b, i]; an empty row is zero."""
+def _rows(slot, n_experts: int, c: int):
+    """Rows of the (E, B, c) buffer flattened, for slots (B, K, t): expert e,
+    position i of batch row b is row (e B + b) c + i; a dropped
+    assignment's slot E c goes to trash row E B c + b."""
+    B = slot.shape[0]
+    b = torch.arange(B, device=slot.device)[:, None, None]
+    return torch.where(slot < n_experts * c, (slot // c * B + b) * c + slot % c,
+                       n_experts * B * c + b)
+
+
+def _dispatch(mode: str, h, slot, *, n_experts: int, c: int):
+    """The expert buffer (E, B, c, d): the token h[b, i] at each kept
+    assignment's row; an empty row is zero."""
     B, t, d = h.shape
-    K = rows.shape[1]
+    K = slot.shape[1]
+    n_rows = n_experts * B * c
+    rows = _rows(slot, n_experts, c)
     h_flat = h.reshape(B * t, d)
     if mode == "index":
         # scatter only the row -> token map; empty rows read a zero row
@@ -110,11 +127,13 @@ def _dispatch(mode: str, h, rows, n_rows: int):
         tok = torch.arange(B * t, device=h.device)
         for k in range(K):
             inv[rows[:, k].reshape(-1)] = tok
-        return torch.cat([h_flat, h.new_zeros((1, d))])[inv[:n_rows]]
-    xs = h.new_zeros((n_rows + B, d))
-    for k in range(K):
-        xs.index_add_(0, rows[:, k].reshape(-1), h_flat)
-    return xs[:n_rows]
+        xs = torch.cat([h_flat, h.new_zeros((1, d))])[inv[:n_rows]]
+    else:
+        xs = h.new_zeros((n_rows + B, d))
+        for k in range(K):
+            xs.index_add_(0, rows[:, k].reshape(-1), h_flat)
+        xs = xs[:n_rows]
+    return xs.view(n_experts, B, c, d)
 
 
 def _route_chunk(cfg: ModelConfig, p, h):
@@ -125,26 +144,43 @@ def _route_chunk(cfg: ModelConfig, p, h):
     c = capacity(t, K, E, m.capacity_factor)
     cdt = h.dtype
 
-    # scatters, cumulative counts and gathers by slot have no DTensor
-    # sharding strategy: under the dry run's rules they run on full replicas
-    # (`replicated`); elsewhere as they are
     probs, gate_w, gate_idx = route(cfg, p, h)
     # Switch balance loss, E * sum_e f_e * P_e per group, averaged over B
-    f = replicated(functools.partial(_load, n_experts=E), gate_idx)
+    f = per_shard(functools.partial(_load, n_experts=E), [ROWS], [("batch", None)], gate_idx)
     aux = (E * (f * probs.mean(dim=1)).sum(-1)).mean()
 
-    slot, keep = replicated(functools.partial(slots, n_experts=E, c=c), gate_idx)
-    # row of the (E * c + 1, B, d) buffer: slot * B + b (the last B rows are trash)
-    rows = slot * B + torch.arange(B, device=h.device)[:, None, None]
-    xe = replicated(functools.partial(_dispatch, m.dispatch, n_rows=E * c * B), h, rows)
-    xe = constrain(xe.view(E, c * B, d), EXPERT_ROWS)
+    slot, keep = per_shard(functools.partial(slots, n_experts=E, c=c), [ROWS], [ROWS, ROWS],
+                           gate_idx)
+    xe = per_shard(functools.partial(_dispatch, m.dispatch, n_experts=E, c=c), [ROWS, ROWS],
+                   [(None, "batch", None, None)], h, slot)
+    xe = _expert_rows(xe).view(E, B * c, d)
 
     act = L.act_fn(cfg.act)
     a = act(torch.bmm(xe, p["w1"].to(cdt))) * torch.bmm(xe, p["w3"].to(cdt))
     del xe
-    ye = constrain(torch.bmm(a, p["w2"].to(cdt)), EXPERT_ROWS).view(E * c * B, d)
+    ye = _expert_rows(torch.bmm(a, p["w2"].to(cdt)).view(E, B, c, d))
     del a
-    return replicated(_combine, ye, rows, keep, gate_w), aux
+    return per_shard(_combine, [(None, "batch", None, None), ROWS, ROWS, ROWS], [ROWS],
+                     ye, slot, keep, gate_w), aux
+
+
+def _expert_rows(x):
+    """The buffer (E, B, c, d) laid out by `EXPERT_ROWS` under the dry run's
+    rules, but where the experts take the data axis and the batch maps to
+    (pod, data), the batch keeps the pod: the buffer then moves between the
+    batch-local dispatch and the experts by an all-to-all within each pod,
+    not a gather across pods.  Elsewhere x."""
+    r = active_rules(x)
+    if r is None:
+        return x
+    spec = r.spec(EXPERT_ROWS, x.shape)
+    batch = r.rules.get("batch")
+    if spec and spec[0] is not None and len(spec) < 2 and isinstance(batch, tuple):
+        taken = (spec[0],) if isinstance(spec[0], str) else spec[0]
+        rest = tuple(a for a in batch if a not in taken)
+        if rest and x.shape[1] % axis_size(r.mesh_shape, rest) == 0:
+            spec = (spec[0], rest[0] if len(rest) == 1 else rest)
+    return x.redistribute(r.mesh, placements(spec, r.mesh))
 
 
 def _load(gate_idx, n_experts: int):
@@ -156,15 +192,19 @@ def _load(gate_idx, n_experts: int):
         torch.ones((B, K * t), device=gate_idx.device)) / (t * K)
 
 
-def _combine(ye, rows, keep, gate_w):
-    """The K-way weighted gather back: y[b, i] = sum_k gate_w[b, i, k] *
-    ye[rows[b, k, i]] over the kept assignments."""
+def _combine(ye, slot, keep, gate_w):
+    """The K-way weighted gather back from the buffer (E, B, c, d):
+    y[b, i] = sum_k gate_w[b, i, k] * (expert output at slot[b, k, i]) over
+    the kept assignments."""
     B, t, _ = gate_w.shape
-    y = ye.new_zeros((B, t, ye.shape[1]))
-    last = ye.shape[0] - 1
-    for k in range(rows.shape[1]):
+    E, _, c, d = ye.shape
+    rows = _rows(slot, E, c)
+    flat = ye.reshape(E * B * c, d)
+    y = ye.new_zeros((B, t, d))
+    last = flat.shape[0] - 1
+    for k in range(slot.shape[1]):
         kept = keep[:, k, :, None]
-        gathered = torch.where(kept, ye[rows[:, k].clamp(max=last)], 0)
+        gathered = torch.where(kept, flat[rows[:, k].clamp(max=last)], 0)
         y = y + gate_w[:, :, k, None].to(ye.dtype) * gathered
     return y
 

@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import constrain, per_shard
+from repro_torch.distributed.sharding import active_rules, constrain, per_shard
 from repro_torch.models import layers as L
 from repro_torch.models.params import ParamDesc
 
@@ -135,6 +135,25 @@ def _gates(cfg: ModelConfig, p, xc):
     return dt, Bm, Cm
 
 
+def _in_proj(w, h, din: int, mode: str):
+    """(xin, z), the two halves of h's projection by `in_proj` (d, 2 din).
+
+    Under the dry run's rules `in_proj` is sharded across its whole width,
+    so a rank's columns lie in one half: slicing the product would gather
+    it whole.  In train and prefill the weight is gathered once instead
+    (d x 2 din, against the product's tokens x 2 din) and each half is
+    formed from its own columns, sharded over "inner"; in decode, one token
+    a row, the product is the smaller and is sliced.  Elsewhere one
+    product, sliced."""
+    inner = ("batch", None, "inner")
+    if mode == "decode" or active_rules(h) is None:
+        xz = constrain(torch.einsum("bsd,de->bse", h, w), inner)
+        return tuple(constrain(t, inner) for t in (xz[..., :din], xz[..., din:]))
+    w = constrain(w, ("embed", None))
+    return tuple(constrain(torch.einsum("bsd,de->bse", h, constrain(half, ("embed", "inner"))),
+                           inner) for half in (w[:, :din], w[:, din:]))
+
+
 def apply_mamba(cfg: ModelConfig, p, x, *, mode="prefill", cache=None, pos_t=None):
     """Returns (out, new_cache).
 
@@ -147,11 +166,7 @@ def apply_mamba(cfg: ModelConfig, p, x, *, mode="prefill", cache=None, pos_t=Non
     cdt = L.compute_dtype(cfg)
     din = s.expand * x.shape[2]
     h = L.apply_norm(cfg, p["norm"], x)
-    xz = torch.einsum("bsd,de->bse", h, p["in_proj"].to(cdt))
-    xz = constrain(xz, ("batch", None, "inner"))
-    # slicing the sharded width gathers xz whole; under the dry run's rules
-    # the halves are sharded again (locally) so what follows stays sharded
-    xin, z = (constrain(t, ("batch", None, "inner")) for t in (xz[..., :din], xz[..., din:]))
+    xin, z = _in_proj(p["in_proj"].to(cdt), h, din, mode)
     A = -torch.exp(p["A_log"].float())
 
     if mode in ("train", "prefill"):

@@ -191,9 +191,10 @@ def test_local_mesh_and_fake_world():
 
 def test_roofline_table_against_another_run(tmp_path):
     """`benchmarks.roofline --against DIR` puts each cell beside the other
-    run's: the count ratios, and the other's dominant term and fit worked
-    out from its counts against the H100 figures (its own "dominant", made
-    with another chip's figures, is not read)."""
+    run's: the count ratios, both memory and collective terms, and the
+    other's dominant term and fit worked out from its counts against the
+    H100 figures (its own "dominant", made with another chip's figures, is
+    not read)."""
     from repro_torch.benchmarks import roofline as troof
 
     def cell(flops, nbytes, wire, temp, dominant):
@@ -209,5 +210,5 @@ def test_roofline_table_against_another_run(tmp_path):
     lines = troof.against(str(tmp_path / "port"), str(tmp_path / "other"))
     assert len(lines) == 3
     assert lines[2] == ("| qwen2-1.5b | prefill_32k | 16x16 | 2.000 | 2.000 | 10.000 | 0.010 "
-                        "| 90.00 / 9.00 | memory / collective | no / yes |")
+                        "| 90.00 / 9.00 | 2 / 1 | 0.02 / 2 | memory / collective | no / yes |")
     assert troof.main(["--dir", str(tmp_path / "port"), "--against", str(tmp_path / "other")]) == 0

@@ -206,7 +206,9 @@ def test_constrain_is_identity_without_rules():
     x = torch.randn(2, 3, 4)
     assert tsh.current_rules() is None
     assert tsh.constrain(x, ("batch", None, "heads")) is x
-    assert tsh.replicated(torch.add, x, x).equal(x + x)
+    y = x.clone()
+    tsh.write_row(y, 1, torch.ones(2, 4))
+    assert y[:, 1].eq(1).all() and y[:, 0].equal(x[:, 0]) and y[:, 2].equal(x[:, 2])
     idx = torch.tensor([[[1], [0], [3]], [[2], [2], [0]]])
     assert tsh.gather_last(x, idx).equal(torch.gather(x, -1, idx))
     names, sizes = MESHES["16x16"]

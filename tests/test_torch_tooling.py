@@ -177,16 +177,17 @@ dist.destroy_process_group()
 """
 
 
-def _gloo4(script, tmp_path) -> list[tuple[str, str]]:
-    """(stdout, stderr) of `script` run as each of 4 gloo ranks."""
-    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+def _gloo4(script, tmp_path, timeout: float = 60) -> list[tuple[str, str]]:
+    """(stdout, stderr) of `script` run as each of 4 gloo ranks, one
+    intra-op thread each."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"), OMP_NUM_THREADS="1")
     procs = [subprocess.Popen([sys.executable, "-c", script, str(r), str(tmp_path / "store")],
                               env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True, cwd=REPO) for r in range(4)]
     outs = []
     try:
         for p in procs:
-            outs.append(p.communicate(timeout=60))
+            outs.append(p.communicate(timeout=timeout))
     finally:
         for p in procs:
             p.kill()
