@@ -72,6 +72,22 @@ its last line):
   4d. vmap_clustering: the port of the reference's clustering benchmark on
      the card under its own assertions (every task fused, >= 1.5x), fused
      outputs against per-task ones; no kernel is launched in 4b-4d;
+  4d'. examples: the port's four example workflows (`repro_torch.examples`)
+     on the card at the reference's default sizes, each against the same
+     example on the CPU (f32 1e-5; flash 2e-5; the least-squares fit at
+     rtol 1e-4): quickstart (its train step from weights drawn on the card,
+     its flash call at (1, 4, 2, 128, 64), causal, window 64, also against
+     `ref_attention`), moldyn twice on one workdir (the second run restores
+     from its log, with the same energies) and once at the paper's 244
+     molecules (4,881 tasks), montage (15 mDiffFit tasks) and fmri; each
+     example's wall seconds and tasks/s logged with the card's name and
+     power limit; the phase's launches are exactly quickstart's one flash
+     call;
+  4d''. train_memory: deepseek-v2-236b cut to 1 dense + 1 MoE layer at full
+     width, one forward and backward (batch 1 x 4096, f32 parameters):
+     `torch.cuda.max_memory_allocated` above the parameters beside
+     `op_cost.analyze`'s count of live bytes for the same step on meta
+     tensors, logged, not held; no kernel launched;
   4e. compression: gradient compression with error feedback on the card,
      at full-width qwen2-1.5b's gradient shapes (f32, one tensor per
      parameter leaf, 1.544 B elements from the generator; the largest
@@ -99,7 +115,8 @@ its last line):
      call; for the kernels that take exponentials (flash attention, the
      Mamba scan), the SFU's floor for them at the SM clock that nvidia-smi
      reads while the kernel runs;
-then print the `kernels` line, the card's name and power limit, and
+then print the `kernels` line (each serving shape's entry, and
+quickstart's f32 call), the card's name and power limit, and
 {"ok": true, "device": {...}} as the last line.
 
 Run:  python3 chip_smoke.py        (needs one CUDA card and nvcc)
@@ -194,6 +211,17 @@ FED_SHARDS, FED_TASKS, FED_BODY_S, FED_CEILING = 2, 600, 0.001, 100.0
 # products may sum in another order than one task's (the reference's own
 # per-task-vs-bundle test misses rtol 1e-5 by that: 8.3e-5 relative)
 TIER_TOL = dict(rtol=1e-4, atol=1e-5)
+# the examples phase: the reference's default sizes, and moldyn once more at
+# the paper's 244 molecules (1 + 244 x 20 = 4,881 tasks); card against CPU at
+# f32 1e-5, the least-squares fit at the test's rtol 1e-4 (tests/test_torch_examples.py)
+QUICKSTART_SHAPE = dict(B=1, Hq=4, Hkv=2, S=128, D=64)            # examples/quickstart.py:90-94
+QUICKSTART_WINDOW = 64
+MOLDYN_PAPER_MOLECULES = 244
+EXAMPLE_TOL = dict(rtol=1e-5, atol=1e-5)
+FIT_TOL = dict(rtol=1e-4, atol=1e-5)
+# deepseek-v2-236b cut to 1 dense + 1 MoE layer at full width: one forward
+# and backward at seq 4096 (train_4k's), batch 1, f32 parameters and grads
+MEMORY_ARCH, MEMORY_BATCH = "deepseek-v2-236b", 1
 # the tooling phases: compression at qwen2-1.5b's gradient shapes, 3 steps a scheme
 COMPRESSION_ARCH, COMPRESSION_STEPS, TOPK_FRAC = "qwen2-1.5b", 3, 0.01
 # the dry run's cells: full width on the 16 x 16 fake world, one process each
@@ -1073,6 +1101,178 @@ def phase_vmap_clustering(seed):
 
 
 # ---------------------------------------------------------------------------
+# 4d'. the example workflows on the card, and a train step's memory
+# ---------------------------------------------------------------------------
+
+def close_all(what, got, want, tol) -> float:
+    """Max abs difference of two lists of tensors (or floats); raises past
+    `tol`."""
+    got = [torch.as_tensor(g).detach().float().cpu() for g in got]
+    want = [torch.as_tensor(w).detach().float().cpu() for w in want]
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} results against {len(want)}")
+    for g, w in zip(got, want):
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{what}: non-finite results")
+        if not torch.allclose(g, w, **tol):
+            raise AssertionError(f"{what}: the card disagrees with the CPU at {tol}")
+    return max((float((g - w).abs().max()) for g, w in zip(got, want)), default=0.0)
+
+
+def timed_example(name, fn, **kw):
+    """fn(**kw) on the host's clock, logged with tasks/s (the engines'
+    submitted tasks over the wall) and the card's name and power limit."""
+    t0 = time.perf_counter()
+    out = fn(**kw)
+    wall = time.perf_counter() - t0
+    stats = out["stats"]        # quickstart's: one per engine
+    tasks = (stats["submitted"] if "submitted" in stats
+             else sum(v["submitted"] for v in stats.values()))
+    log("example", example=name, device=kw.get("device", "cuda"), wall_s=wall, tasks=tasks,
+        tasks_per_s=tasks / wall, card=smi_name_and_limit(), **{
+            k: v for k, v in kw.items() if k in ("molecules",)})
+    return out
+
+
+def smi_name_and_limit() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip()
+
+
+def phase_examples(seed):
+    """The port's four example workflows on the card, each against the same
+    example on the CPU: quickstart (from weights, tokens and q, k, v drawn
+    on the card and copied to the CPU; its flash call is the phase's one
+    kernel launch), moldyn twice on one workdir (the second run restores
+    from the log) and once at the paper's 244 molecules, montage and fmri
+    at the reference's default sizes."""
+    from repro_torch.configs import registry
+    from repro_torch.examples import fmri_workflow, moldyn_workflow, montage_workflow, quickstart
+    from repro_torch.kernels.ref import ref_attention
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_tree, tree_map
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda")
+    cfg = registry.smoke_config("qwen2-1.5b")
+    params = init_tree(T.build_descriptors(cfg), gen.manual_seed(seed), "cuda")
+    tokens = torch.randint(0, cfg.vocab, (2, 64), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    s = QUICKSTART_SHAPE
+    qkv = [torch.randn(s["B"], h, s["S"], s["D"], generator=gen, device="cuda")
+           for h in (s["Hq"], s["Hkv"], s["Hkv"])]
+    cpu = lambda t: t.cpu()  # noqa: E731
+    host = dict(params=tree_map(cpu, params), tokens=tokens.cpu(), qkv=[t.cpu() for t in qkv])
+    card = timed_example("quickstart", quickstart.run, device="cuda",
+                         params=tree_map(torch.clone, params), tokens=tokens, qkv=qkv)
+    ref = quickstart.run("cpu", **host)
+    flash_err = close_all("quickstart flash vs ref_attention", [card["kernel"]["out"]],
+                          [ref_attention(*qkv, causal=True, window=QUICKSTART_WINDOW)],
+                          dict(rtol=TOL[torch.float32], atol=TOL[torch.float32]))
+    close_all("quickstart flash, card vs CPU", [card["kernel"]["out"]], [ref["kernel"]["out"]],
+              dict(rtol=TOL[torch.float32], atol=TOL[torch.float32]))
+    model_err = close_all("quickstart train step", [card["model"][k] for k in ("loss", "grad_norm")],
+                          [ref["model"][k] for k in ("loss", "grad_norm")], EXAMPLE_TOL)
+    if card["workflow"]["sum"] != 285 or card["real"]["sum"] != 285:
+        raise AssertionError(f"quickstart: sums {card['workflow']['sum']}, {card['real']['sum']}")
+    log("example_quickstart", loss=card["model"]["loss"], grad_norm=card["model"]["grad_norm"],
+        train_step_max_abs_err=model_err, flash_vs_ref_max_abs_err=flash_err,
+        flash_shape=list(s.values()), window=QUICKSTART_WINDOW, stats=card["stats"])
+
+    root = Path(__file__).resolve().parent / "build" / "examples"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        first = timed_example("moldyn", moldyn_workflow.run, device="cuda",
+                              workdir=str(root / "moldyn"))
+        second = timed_example("moldyn_resumed", moldyn_workflow.run, device="cuda",
+                               workdir=str(root / "moldyn"))
+        host_md = moldyn_workflow.run(device="cpu", workdir=str(root / "moldyn_cpu"))
+        paper = timed_example("moldyn_paper", moldyn_workflow.run, device="cuda",
+                              molecules=MOLDYN_PAPER_MOLECULES, workdir=str(root / "paper"))
+        host_paper = moldyn_workflow.run(MOLDYN_PAPER_MOLECULES, str(root / "paper_cpu"), "cpu")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    md_err = close_all("moldyn", first["energies"], host_md["energies"], EXAMPLE_TOL)
+    close_all("moldyn resumed", second["energies"], first["energies"], EXAMPLE_TOL)
+    paper_err = close_all("moldyn at 244 molecules", paper["energies"], host_paper["energies"],
+                          EXAMPLE_TOL)
+    restored = second["stats"]["restored_from_log"]
+    log("example_moldyn", energies=first["energies"], max_abs_err=md_err, restored=restored,
+        stats=first["stats"], stats_resumed=second["stats"], paper_stats=paper["stats"],
+        paper_max_abs_err=paper_err)
+    if restored <= 0 or paper["stats"]["submitted"] != 1 + 20 * MOLDYN_PAPER_MOLECULES:
+        raise AssertionError(f"moldyn: restored {restored}; {paper['stats']['submitted']} "
+                             f"tasks at {MOLDYN_PAPER_MOLECULES} molecules")
+
+    mt = timed_example("montage", montage_workflow.run, device="cuda")
+    mt_err = close_all("montage", [mt["mosaic"]], [montage_workflow.run(device="cpu")["mosaic"]],
+                       EXAMPLE_TOL)
+    log("example_montage", diff_fits=mt["diff_fits"], max_abs_err=mt_err, stats=mt["stats"])
+    if mt["diff_fits"] != 16 - 1:
+        raise AssertionError(f"montage: {mt['diff_fits']} mDiffFit tasks for 16 images")
+
+    fm = timed_example("fmri", fmri_workflow.run, device="cuda")
+    fm_err = close_all("fmri", fm["resliced"], fmri_workflow.run(device="cpu")["resliced"],
+                       FIT_TOL)
+    log("example_fmri", volumes=len(fm["resliced"]), max_abs_err=fm_err, stats=fm["stats"],
+        seconds=time.perf_counter() - t_phase)
+    free_card()
+
+
+def phase_train_memory(seed):
+    """deepseek-v2-236b cut to 1 dense + 1 MoE layer at full width: one
+    forward and backward of `forward_train` on the card, its peak of
+    allocated bytes above what was allocated before, beside `op_cost`'s
+    count of the bytes live during the same step on meta tensors (what the
+    dry run's temp bytes count).  A measurement; nothing is held."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import op_cost
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_tree, tree_leaves, tree_map_desc
+
+    t0 = time.perf_counter()
+    cfg = registry.cut_depth(registry.get_config(MEMORY_ARCH), 1)
+    descs = T.build_descriptors(cfg)
+    rng = np.random.default_rng(seed)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (MEMORY_BATCH, TRAIN_SEQ))
+                                 .astype(np.int32)) for k in ("tokens", "labels")}
+
+    def step(params, batch):
+        loss, _ = T.forward_train(cfg, params, batch)
+        loss.backward()
+        return loss
+
+    def meta(d):
+        t = torch.empty(d.shape, dtype=d.dtype or torch.float32, device="meta")
+        return t.requires_grad_() if t.is_floating_point() else t
+
+    counted = op_cost.analyze(step, tree_map_desc(meta, descs),
+                              {k: v.to("meta") for k, v in batch.items()}).peak_bytes
+    free_card()
+    params = init_tree(descs, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+    for t in tree_leaves(params):
+        if t.is_floating_point():
+            t.requires_grad_()
+    batch = {k: v.to("cuda") for k, v in batch.items()}
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    loss = step(params, batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t1
+    measured = torch.cuda.max_memory_allocated() - before
+    log("train_memory", arch=cfg.name, layers="1 dense + 1 MoE", batch=MEMORY_BATCH,
+        seq_len=TRAIN_SEQ, params=cfg.param_count(), param_bytes=before,
+        measured_peak_bytes=measured, counted_peak_bytes=counted,
+        counted_over_measured=counted / measured, loss=float(loss.detach()), step_s=step_s,
+        card=smi_name_and_limit(), seconds=time.perf_counter() - t0)
+    del params, batch, loss
+    free_card()
+
+
+# ---------------------------------------------------------------------------
 # 4e-4g. the tooling: compression, the elastic mesh, the dry run
 # ---------------------------------------------------------------------------
 
@@ -1278,19 +1478,20 @@ def attended_pairs(S, causal, window) -> int:
                for r in range(S))
 
 
-def time_flash(gen, shape, window, causal=True):
-    """The kernel at one serving shape (bf16, the main path's strided views),
-    beside its bound, the SFU's floor, its plain version and one PyTorch call
-    that computes the same function: SDPA where the mask is causal over all
-    rows or absent; for a window shorter than the prompt, SDPA with the
-    explicit boolean band mask on its memory-efficient backend (which takes
-    a mask), the kv heads expanded before the call."""
+def time_flash(gen, shape, window, causal=True, dtype=torch.bfloat16, layout="bshd"):
+    """The kernel at one shape of the main path (a serving shape: bf16, the
+    strided views; quickstart's: f32, contiguous), beside its bound, the
+    SFU's floor, its plain version and one PyTorch call that computes the
+    same function: SDPA where the mask is causal over all rows or absent;
+    for a window shorter than the prompt, SDPA with the explicit boolean
+    band mask on its memory-efficient backend (which takes a mask), the kv
+    heads expanded before the call."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.kernels.ops import flash_attention
     from repro_torch.kernels.ref import ref_attention
     s = shape
-    q, k, v = attn_inputs(gen, *s.values(), torch.bfloat16)     # the main path's layout
+    q, k, v = attn_inputs(gen, *s.values(), dtype, layout)
     mask = dict(causal=causal, window=window)
     run = lambda: flash_attention(q, k, v, **mask)  # noqa: E731
     out = run()
@@ -1316,12 +1517,13 @@ def time_flash(gen, shape, window, causal=True):
         del ke, ve, band
     pairs = attended_pairs(s["S"], causal, window)
     flops = 4 * s["B"] * s["Hq"] * s["D"] * pairs               # QK^T and PV
-    b_ms, by = bound(flops, nbytes(q, k, v, out), PEAK_BF16_FLOPS)
+    b_ms, by = bound(flops, nbytes(q, k, v, out),
+                     PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS)
     n_exp = s["B"] * s["Hq"] * pairs                            # one per unmasked score
     clock = sm_clock_mhz(run, ms)
     floor = exp_floor_ms(n_exp, clock)
     log("kernel_time", kernel="flash_attention", shape=list(s.values()), causal=causal,
-        window=window, dtype="bfloat16", ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        window=window, dtype=str(dtype).removeprefix("torch."), ms=ms, plain_ms=plain_ms, library_ms=library_ms,
         library=library, bound_ms=b_ms, bound_by=by, flops=flops, bytes=nbytes(q, k, v, out),
         exponentials=n_exp, sm_clock_mhz=clock, exp_floor_ms=floor, max_abs_err=err)
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
@@ -1394,14 +1596,16 @@ ENTRIES = (("flash_attention@qwen2-1.5b", "flash_attention", "qwen2-1.5b"),
            ("flash_attention@gemma3-27b-local", "flash_attention", "gemma3-27b"),
            ("flash_attention@gemma3-27b-global", "flash_attention", "gemma3-27b"),
            ("flash_attention@qwen2-vl-7b", "flash_attention", "qwen2-vl-7b"),
-           ("flash_attention@whisper-large-v3-encoder", "flash_attention", "whisper-large-v3"))
+           ("flash_attention@whisper-large-v3-encoder", "flash_attention", "whisper-large-v3"),
+           ("flash_attention@quickstart", "flash_attention", "quickstart"))
 
 
 def phase_kernel_time(gen, launches, worst_err) -> list:
     """One entry of the `kernels` line per kernel and serving shape, each
     with the launches of the arch whose prefill gives that shape (for
     gemma3-27b's two entries, its 62 flash launches of both kinds) and the
-    times at that shape."""
+    times at that shape; and one for quickstart's flash call, with the
+    examples phase's launch."""
     timed = {"flash_attention@qwen2-1.5b": time_flash(gen, SERVE_SHAPE, 0),
              "flash_attention@recurrentgemma-9b": time_flash(gen, LOCAL_SHAPE, LOCAL_WINDOW),
              "flash_attention@granite-moe-3b-a800m": time_flash(gen, GRANITE_SHAPE, 0),
@@ -1412,7 +1616,9 @@ def phase_kernel_time(gen, launches, worst_err) -> list:
              "flash_attention@gemma3-27b-global": time_flash(gen, GEMMA3_SHAPE, 0),
              "flash_attention@qwen2-vl-7b": time_flash(gen, QWEN2VL_SHAPE, 0),
              "flash_attention@whisper-large-v3-encoder": time_flash(gen, WHISPER_ENC_SHAPE, 0,
-                                                                     causal=False)}
+                                                                     causal=False),
+             "flash_attention@quickstart": time_flash(gen, QUICKSTART_SHAPE, QUICKSTART_WINDOW,
+                                                      dtype=torch.float32, layout="bhsd")}
     out = []
     for name, kernel, arch in ENTRIES:
         t = timed[name]
@@ -1468,6 +1674,20 @@ def main():
                              f"{reliability_launches}")
     for w in ws.values():
         w.launches = 0
+    phase_examples(seed)
+    launches["quickstart"] = {name: w.launches for name, w in ws.items()}
+    log("examples_launches", launches=launches["quickstart"])
+    if launches["quickstart"] != {"flash_attention": 1, "mamba_scan": 0, "rglru_scan": 0}:
+        raise AssertionError(f"the examples phase launched {launches['quickstart']}; "
+                             f"quickstart's one flash call should be the only launch")
+    for w in ws.values():
+        w.launches = 0
+    phase_train_memory(seed)
+    memory_launches = {name: w.launches for name, w in ws.items()}
+    if any(memory_launches.values()):
+        raise AssertionError(f"the train_memory phase launched a kernel: {memory_launches}")
+    for w in ws.values():
+        w.launches = 0
     dry = start_dryrun()
     try:
         phase_compression(seed)
@@ -1485,10 +1705,7 @@ def main():
     kernels = phase_kernel_time(gen, launches, worst)
     log("done", seconds=time.perf_counter() - t0)
     print(json.dumps({"kernels": kernels}))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip()
-    print(smi)
+    print(smi_name_and_limit())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

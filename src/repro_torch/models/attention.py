@@ -46,7 +46,17 @@ replicate the work (XLA partitions the same dots by itself):
   block of query rows against the batch shard's whole k and v, gathered
   over the model axis before the kv heads are repeated.  A causal layer
   trades the second half of its rows with the rank at the mirrored
-  coordinate (zigzag), so that every rank scores as many keys;
+  coordinate (zigzag), so that every rank scores as many keys.  A
+  bidirectional layer whose rows (or keys) do not split evenly (whisper's
+  1500 frames) is padded to a multiple of the axis, and the padded keys
+  are cut off before the scores;
+* q heads that shard when the kv heads do not (stablelm's 32 / 8,
+  recurrentgemma's 16 / 1 on 16 ranks): each rank projects only the kv
+  heads its own q heads read and picks them per q head locally, never
+  the whole repeated k and v; a prefill's cache rows come from one
+  all-to-all of those heads;
+* MLA's down projections (`wq_a`, `wkv_a`) read each rank's own rows of
+  the sequence-sharded norm output; the narrow latents are gathered;
 * decode over a cache sharded along T scores each rank's slice of the
   unexpanded cache and merges the partial softmaxes exactly
   (`_merge_partials`), for GQA and for MLA's latent cache; the new row is
@@ -256,11 +266,11 @@ def _repeat_kv(k, group: int):
     return k.repeat_interleave(group, dim=2) if group > 1 else k
 
 
-def _ring_tail(t, window: int):
-    """The last `window` rows of t (B, S, ...) along dim 1, the row of
-    position p in slot p mod window: a roll by S mod window."""
-    S = t.shape[1]
-    return t[:, S - window:].roll(S % window, 1)
+def _ring_tail(t, window: int, length: int):
+    """The last `window` rows of t (B, R, ...) along dim 1, the rows of
+    positions length - R .. length - 1, the row of position p in slot
+    p mod window: a roll by length mod window."""
+    return t[:, t.shape[1] - window:].roll(length % window, 1)
 
 
 def _decode_per_shard(q, k, v, mask, scale):
@@ -282,24 +292,52 @@ def _say_replicated(rows: int, n: int, axis: str, heads: int):
                 "each rank attends all %d heads of them", rows, n, axis, heads)
 
 
+def _seq_axis(x):
+    """The mesh axis that shards the activations' sequence (`seq_act`) under
+    the dry run's rules, with its size; (None, 1) otherwise."""
+    r = active_rules(x)
+    axis = None if r is None else r.rules.get("seq_act")
+    n = r.mesh_shape.get(axis, 1) if isinstance(axis, str) else 1
+    return (axis, n) if n > 1 else (None, 1)
+
+
 def _row_axis(cfg: ModelConfig, x, *, kind: str):
     """The mesh axis whose ranks split a train or prefill layer's query
     rows: under the dry run's rules, when the heads do not shard over it
     and the activations' sequence does (`seq_act`).  None otherwise, and
-    for a sequence that does not cut into n equal blocks (2 n for a causal
-    layer's zigzag), which keeps the replicated path and says so."""
+    for a causal or local sequence that does not cut into n equal blocks
+    (2 n for a causal layer's zigzag), which keeps the replicated path and
+    says so; a bidirectional layer's rows are padded instead
+    (`_split_rows`)."""
     r = active_rules(x)
     if r is None or r.spec(("heads",), (cfg.n_heads,)):
         return None
-    axis = r.rules.get("seq_act")
-    n = r.mesh_shape.get(axis, 1) if isinstance(axis, str) else 1
-    if n <= 1:
+    axis, n = _seq_axis(x)
+    if axis is None:
         return None
     S = x.shape[1]
-    if S % (2 * n if kind == "causal" else n):
+    if kind != "bidir" and S % (2 * n if kind == "causal" else n):
         _say_replicated(S, n, axis, cfg.n_heads)
         return None
     return axis
+
+
+def _whole_rows(t, rows: int):
+    """The first `rows` rows of t (B, R, ...) along dim 1, whole on every
+    rank: under the dry run's rules a row-sharded t is gathered first."""
+    axes = ("batch",) + (None,) * (t.dim() - 1)
+    return per_shard(lambda u: u[:, :rows], [axes], [axes], t)
+
+
+def _split_rows(t, n: int):
+    """t (B, R, d) laid out by rows (`ROWS_D`), padded with zero rows to a
+    multiple of n where n does not divide R (DTensor splits a dim only
+    evenly); the caller cuts the padded rows off (`_whole_rows`)."""
+    pad = -t.shape[1] % n
+    if pad:
+        axes = ("batch", None, None)
+        t = per_shard(lambda u: torch.nn.functional.pad(u, (0, 0, 0, pad)), [axes], [axes], t)
+    return constrain(t, ROWS_D)
 
 
 def _trade(t, peer: int, n: int, group: str):
@@ -326,16 +364,18 @@ def _core(kind: str, *, scale, window, kv_block, q_block):
 
 
 def _attend_rows(q, k, v, *, kind, coord, n, group, heads_per_kv, scale, kv_block,
-                 q_block, window):
+                 q_block, window, kv_len):
     """One rank's block of query rows, q (B, Sl, H, D), the block at
     coordinate `coord` of `n` along the sequence, against the batch
-    shard's whole k, v (B, T, Hkv, D), the kv heads repeated here.
+    shard's whole k, v (B, T, Hkv, D), cut to their first `kv_len` rows
+    (the rest padding), the kv heads repeated here.
 
     A causal layer keeps the first half of its rows and trades the second
     half with the rank at coordinate n - 1 - coord (`group`'s all-to-all),
     so that each rank scores the rows of one early and one late half-block:
     the same number of keys on every rank.  The outputs of the traded rows
     go back the same way."""
+    k, v = k[:, :kv_len], v[:, :kv_len]
     k, v = _repeat_kv(k, heads_per_kv), _repeat_kv(v, heads_per_kv)
     core = _core(kind, scale=scale, window=window, kv_block=kv_block, q_block=q_block)
     Sl = q.shape[1]
@@ -363,17 +403,26 @@ def _project_local(x, *ws, cfg: ModelConfig, names, which, rope_start):
     return tuple(ys)
 
 
-def _project_rows(cfg: ModelConfig, p, x, which: str, *, axis: str, rope: bool):
-    """The projections `which` of x, each rank projecting its own rows
-    along `axis` (DTensor's own products would flatten the sharded rows
-    into the batch, which some torch versions refuse)."""
+def _rows_start(r, x, axes) -> int:
+    """The position of this rank's first row of x (B, S, ...) laid out by
+    `axes` under rules `r` (0 where dim 1 is whole)."""
+    spec = r.spec(axes, x.shape)
+    axis = spec[1] if len(spec) > 1 else None
+    if not isinstance(axis, str):
+        return 0
+    return r.mesh.get_local_rank(axis) * (x.shape[1] // r.mesh_shape[axis])
+
+
+def _project_rows(cfg: ModelConfig, p, x, which: str, *, rope: bool, axes=ROWS_D):
+    """The projections `which` of x, each rank projecting its own rows as
+    `axes` lay them out (DTensor's own products would flatten the sharded
+    rows into the batch, which some torch versions refuse)."""
     r = active_rules(x)
     names = sorted(n for n in p if n not in ("norm", "wo"))
     descs = attn_descs(cfg)
-    start = r.mesh.get_local_rank(axis) * (x.shape[1] // r.mesh_shape[axis]) if rope else None
     fn = functools.partial(_project_local, cfg=cfg, names=tuple(names), which=which,
-                           rope_start=start)
-    return per_shard(fn, [ROWS_D] + [descs[n].axes for n in names], [ROWS] * len(which),
+                           rope_start=_rows_start(r, x, axes) if rope else None)
+    return per_shard(fn, [axes] + [descs[n].axes for n in names], [axes + (None,)] * len(which),
                      x, *(p[n] for n in names))
 
 
@@ -381,17 +430,147 @@ def _out_rows(o, wo):
     return torch.einsum("bshk,hkd->bsd", o, wo.to(o.dtype))
 
 
-def _rows_attention(cfg: ModelConfig, q, k, v, *, axis: str, kind: str, scale, window):
+def _rows_attention(cfg: ModelConfig, q, k, v, *, axis: str, kind: str, scale, window,
+                    kv_len: int):
     """Attention partitioned by query rows over mesh axis `axis`: each rank
     attends its own rows (`_attend_rows`) against k and v gathered whole
-    along the sequence, before the kv heads are repeated; the output stays
-    sequence-sharded."""
+    along the sequence and cut to `kv_len` rows, before the kv heads are
+    repeated; the output stays sequence-sharded."""
     r = active_rules(q)
     fn = functools.partial(
         _attend_rows, kind=kind, coord=r.mesh.get_local_rank(axis), n=r.mesh_shape[axis],
         group=r.mesh.get_group(axis).group_name, heads_per_kv=cfg.n_heads // cfg.n_kv_heads,
-        scale=scale, kv_block=cfg.attn_kv_block, q_block=cfg.attn_q_block, window=window)
+        scale=scale, kv_block=cfg.attn_kv_block, q_block=cfg.attn_q_block, window=window,
+        kv_len=kv_len)
     return per_shard(fn, [ROWS, WHOLE, WHOLE], [ROWS], q, k, v)
+
+
+# ---- q heads sharded, kv heads whole ----
+
+def _kv_head_axis(cfg: ModelConfig, x):
+    """The mesh axis over which the q heads shard while the kv heads do not
+    (stablelm-12b's 32 / 8 heads on 16 ranks), under the dry run's rules;
+    None otherwise."""
+    r = active_rules(x)
+    if r is None or cfg.n_heads == cfg.n_kv_heads:
+        return None
+    sq = r.spec(("heads",), (cfg.n_heads,))
+    if not sq or not isinstance(sq[0], str) or r.spec(("kv_heads",), (cfg.n_kv_heads,)):
+        return None
+    return sq[0]
+
+
+def _own_kv_heads(cfg: ModelConfig, coord: int, n: int):
+    """(first, count, pick): the kv heads that the q heads of the rank at
+    coordinate `coord` of the `n` that split the q heads read, q head h
+    reading kv head h // (Hq / Hkv): from `first`, `count` of them; `pick`
+    indexes them per local q head."""
+    hl, group = cfg.n_heads // n, cfg.n_heads // cfg.n_kv_heads
+    heads = torch.arange(coord * hl, (coord + 1) * hl) // group
+    first = int(heads[0])
+    return first, int(heads[-1]) - first + 1, heads - first
+
+
+def _pick_heads(t, pick):
+    """t (B, S, count, D) -> (B, S, len(pick), D), one kv head per local q
+    head: a broadcast view where the rank reads one kv head."""
+    if t.shape[2] == 1:
+        return t.expand(-1, -1, len(pick), -1)
+    return t.index_select(2, pick.to(t.device))
+
+
+def _cache_rows(k, v, first: int, *, cfg: ModelConfig, coord: int, n: int, group: str):
+    """A prefill cache's rows for this rank, every kv head, from the kv
+    heads each rank projected for its own q heads (k, v (B, S, count, D)
+    from kv head `first`): one all-to-all over `group`, in which each kv
+    head's rows go out from the first rank whose q heads read it, block j
+    of S / n rows to the rank at coordinate j.  -> (B, S / n, Hkv, D) each."""
+    from torch.distributed import _functional_collectives as funcol
+
+    hl, g = cfg.n_heads // n, cfg.n_heads // cfg.n_kv_heads
+    owner = [h * g // hl for h in range(cfg.n_kv_heads)]
+    mine = [h - first for h, o in enumerate(owner) if o == coord]
+    B, S, _, D = k.shape
+    kv = torch.stack([k, v])[:, :, :, mine]                     # (2, B, S, o, D)
+    send = kv.reshape(2, B, n, S // n, len(mine), D).permute(2, 4, 0, 1, 3, 5)
+    send = send.reshape(n * len(mine), 2 * B * (S // n) * D).contiguous()
+    got = funcol.wait_tensor(funcol.all_to_all_single(
+        send, [owner.count(j) for j in range(n)], [len(mine)] * n, group))
+    got = got.view(cfg.n_kv_heads, 2, B, S // n, D).permute(1, 2, 3, 0, 4)
+    return got[0], got[1]
+
+
+def _attend_own_heads(q, *args, cfg, core, coord, n, names, rope, group=None):
+    """One rank's q heads, q (B, S, hl, D), against the kv heads they read.
+    With `names`, args are the kv source (B, T, d), with `group` a
+    row-sharded copy of it (only its layout is read), and the weights so
+    named; only those kv heads are projected here, and with `group` the
+    prefill cache's rows of this rank come back too (`_cache_rows`).
+    Otherwise args are k and v with every kv head."""
+    first, count, pick = _own_kv_heads(cfg, coord, n)
+    if not names:
+        k, v = args
+        return core(q, _pick_heads(k, pick), _pick_heads(v, pick))
+    src, ws = args[0], dict(zip(names, args[1 + (group is not None):]))
+    own = {m: (w[first:first + count] if m in ("bk", "bv") else
+               w[:, first:first + count] if m in ("wk", "wv") else w)
+           for m, w in ws.items()}
+    k, v = _project_local(src, *own.values(), cfg=cfg, names=tuple(own), which="kv",
+                          rope_start=0 if rope else None)
+    o = core(q, _pick_heads(k, pick), _pick_heads(v, pick))
+    if group is None:
+        return o
+    return (o,) + _cache_rows(k, v, first, cfg=cfg, coord=coord, n=n, group=group)
+
+
+def _cache_kv(cfg: ModelConfig, p, src, *, window: int, rope: bool):
+    """A prefill's cache k and v, every kv head, from src (B, S, d), whole
+    along the sequence: its last `window` positions for a ring, else each
+    rank's own rows of the cache's layout."""
+    S = src.shape[1]
+    if window > 0:
+        W = min(window, S)
+        tail = src[:, S - W:]
+        k, v = _project(cfg, p, tail, "k"), _project(cfg, p, tail, "v")
+        if rope:
+            k = L.positions_for(cfg, k, torch.arange(S - W, S, device=src.device)[None])
+        return k, v
+    return _project_rows(cfg, p, src, "kv", rope=rope, axes=CACHE[:2] + (None,))
+
+
+def _heads_attention(cfg: ModelConfig, p, q, h, k, v, *, axis: str, core, rope: bool,
+                     cache: bool = False):
+    """Attention whose q heads shard over `axis` while the kv heads do not:
+    each rank attends its own q heads against only the kv heads they read.
+    With more than one kv head, it projects just those from h (B, S, d),
+    whole along the sequence (k and v are then None); with one, the whole
+    k and v are given, and each rank reads its head through a view.
+
+    With `cache` (a prefill's, more than one kv head), also returns the
+    cache's k and v, every kv head: where the cache's rows shard over
+    `axis` too, traded from the heads projected here (`_cache_rows`), else
+    projected again (`_cache_kv`)."""
+    r = active_rules(q)
+    fn = functools.partial(_attend_own_heads, cfg=cfg, core=core,
+                           coord=r.mesh.get_local_rank(axis), n=r.mesh_shape[axis],
+                           names=(), rope=rope)
+    if k is not None:
+        return per_shard(fn, [HEADS, WHOLE, WHOLE], [HEADS], q, k, v)
+    names = tuple(sorted(m for m in p if m in ("wk", "wv", "bk", "bv", "k_norm")))
+    descs = attn_descs(cfg)
+    rows = ("batch", "kv_seq", None)
+    trade = cache and _t_axis(r, h, rows) == axis
+    donor = [h] if trade else []
+    if trade:
+        fn = functools.partial(fn, group=r.mesh.get_group(axis).group_name)
+    out = per_shard(functools.partial(fn, names=names),
+                    [HEADS, ("batch", None, None)] + [rows] * trade
+                    + [descs[m].axes for m in names],
+                    [HEADS] + [rows + (None,)] * (2 * trade), q, h, *donor,
+                    *(p[m] for m in names))
+    if trade or not cache:
+        return out
+    return (out,) + _cache_kv(cfg, p, h, window=0, rope=rope)
 
 
 def _merge_partials(m, l, o, group: str, n: int):
@@ -485,36 +664,63 @@ def apply_attn(cfg: ModelConfig, p, x, *, window: int, causal: bool = True,
             raise NotImplementedError(L.FORWARD_ONLY.format(kernel="flash attention"))
         kind = "bidir" if cross or not causal else "local" if window > 0 else "causal"
         axis = None if kernel else _row_axis(cfg, x, kind=kind)
+        rope = cfg.pos_embed == "rope" and not cross
         if axis is not None:
             # the query rows split: the norm's output stays sharded along
             # them, and each rank projects, attends and projects back its own
-            h = L.apply_norm(cfg, p["norm"], x, axes=ROWS_D)
-            rope = cfg.pos_embed == "rope" and not cross
-            q, = _project_rows(cfg, p, h, "q", axis=axis, rope=rope)
-            k, v = _project_rows(cfg, p, enc_out if cross else h, "kv", axis=axis, rope=rope)
-            o = _rows_attention(cfg, q, k, v, axis=axis, kind=kind, scale=scale, window=window)
+            n = active_rules(x).mesh_shape[axis]
+            h = _split_rows(L.apply_norm(cfg, p["norm"], x, axes=ROWS_D), n)
+            kv_src = _split_rows(enc_out, n) if cross else h
+            q, = _project_rows(cfg, p, h, "q", rope=rope)
+            k, v = _project_rows(cfg, p, kv_src, "kv", rope=rope)
+            T = (enc_out if cross else x).shape[1]
+            o = _rows_attention(cfg, q, k, v, axis=axis, kind=kind, scale=scale, window=window,
+                                kv_len=T)
             out = per_shard(_out_rows, [ROWS, ("heads", "head_dim", "embed")], [ROWS_D],
                             o, p["wo"])
+            if h.shape[1] != S:
+                out = _whole_rows(out, S)
+            if mode == "prefill" and k.shape[1] != T:
+                k, v = _whole_rows(k, T), _whole_rows(v, T)
         else:
             h = L.apply_norm(cfg, p["norm"], x)
-            q, k, v = _project_qkv(cfg, p, h, enc_out if cross else None)
-            if cfg.pos_embed == "rope" and not cross:
-                pos = torch.arange(S, device=x.device)[None]
-                q = L.positions_for(cfg, q, pos)
-                k = L.positions_for(cfg, k, pos)
-            q = constrain(q, HEADS)
-            if kernel:
-                from repro_torch.kernels import ops as kops
-                o = kops.flash_attention(
-                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                    causal=causal, window=window, scale=scale).transpose(1, 2)
+            kv_axis = None if kernel else _kv_head_axis(cfg, x)
+            core = _core(kind, scale=scale, window=window, kv_block=cfg.attn_kv_block,
+                         q_block=cfg.attn_q_block)
+            if kv_axis is not None and cfg.n_kv_heads > 1:
+                # each rank projects only the kv heads its q heads read
+                q, = _project_local(h, *p.values(), cfg=cfg, names=tuple(p), which="q",
+                                    rope_start=0 if rope else None)
+                kv_src = enc_out if cross else h
+                ring = window > 0 and not cross
+                o = _heads_attention(cfg, p, constrain(q, HEADS), kv_src, None, None,
+                                     axis=kv_axis, core=core, rope=rope,
+                                     cache=mode == "prefill" and not ring)
+                if mode == "prefill" and not ring:
+                    o, k, v = o
+                elif mode == "prefill":
+                    k, v = _cache_kv(cfg, p, kv_src, window=window, rope=rope)
             else:
-                core = _core(kind, scale=scale, window=window, kv_block=cfg.attn_kv_block,
-                             q_block=cfg.attn_q_block)
-                # local in batch and heads: under the dry run's rules each rank
-                # attends over its own shards
-                o = per_shard(core, [HEADS] * 3, [HEADS], q, _expand_kv(cfg, k),
-                              _expand_kv(cfg, v))
+                q, k, v = _project_qkv(cfg, p, h, enc_out if cross else None)
+                if rope:
+                    pos = torch.arange(S, device=x.device)[None]
+                    q = L.positions_for(cfg, q, pos)
+                    k = L.positions_for(cfg, k, pos)
+                q = constrain(q, HEADS)
+                if kernel:
+                    from repro_torch.kernels import ops as kops
+                    o = kops.flash_attention(
+                        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                        causal=causal, window=window, scale=scale).transpose(1, 2)
+                elif kv_axis is not None:
+                    # one kv head, whole on every rank: read through a view
+                    o = _heads_attention(cfg, p, q, None, k, v, axis=kv_axis, core=core,
+                                         rope=rope)
+                else:
+                    # local in batch and heads: under the dry run's rules each
+                    # rank attends over its own shards
+                    o = per_shard(core, [HEADS] * 3, [HEADS], q, _expand_kv(cfg, k),
+                                  _expand_kv(cfg, v))
             out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(o.dtype))
         if mode == "train":
             return L.residual(x, out), None
@@ -524,7 +730,7 @@ def apply_attn(cfg: ModelConfig, p, x, *, window: int, causal: bool = True,
             pos_c = torch.arange(S - W, S, device=x.device, dtype=torch.int32)
             # local in batch and heads (and `roll` has no DTensor strategy in
             # some torch versions): under the dry run's rules, per shard
-            tail = functools.partial(_ring_tail, window=W)
+            tail = functools.partial(_ring_tail, window=W, length=S)
             new_cache = {"k": per_shard(tail, [HEADS], [HEADS], k),
                          "v": per_shard(tail, [HEADS], [HEADS], v),
                          "pos": pos_c.roll(S % W, 0)[None].expand(B, W).contiguous()}
@@ -605,17 +811,47 @@ def _rms_latent(x, scale):
     return x * r.to(x.dtype) * scale.to(x.dtype)
 
 
-def _mla_common(cfg: ModelConfig, p, h, positions):
+def _mla_latents(h, wq_a, q_norm, wkv_a, kv_norm, *, cfg: ModelConfig, start: int):
+    """The down projections of h (B, S, d), the rows at positions start ..
+    start + S - 1: the normed query latent (B, S, q_lora), the normed kv
+    latent (B, S, kv_lora) and the rotated shared rope key (B, S, rope)."""
     cdt = L.compute_dtype(cfg)
-    dn, kl = cfg.mla_nope_dim, cfg.mla_kv_lora
-    cq = _rms_latent(torch.matmul(h, p["wq_a"].to(cdt)), p["q_norm"])
+    kl = cfg.mla_kv_lora
+    positions = torch.arange(start, start + h.shape[1], device=h.device)[None]
+    cq = _rms_latent(torch.matmul(h, wq_a.to(cdt)), q_norm)
+    ckv_f = torch.matmul(h, wkv_a.to(cdt))
+    c_kv = _rms_latent(ckv_f[..., :kl], kv_norm)
+    k_rope = L.apply_rope(cfg, ckv_f[:, :, None, kl:], positions)[:, :, 0]
+    return cq, c_kv, k_rope
+
+
+def _mla_common(cfg: ModelConfig, p, x, h, start: int = 0):
+    """(q_nope, q_rope, c_kv, k_rope) of the norm's output h, the rows at
+    positions start .. start + S - 1.  Under the dry run's rules, with
+    the sequence sharded (train, prefill), the down projections read each
+    rank's own rows of h (the residual x's layout) and the narrow latents
+    are gathered along the sequence; the cache keeps them sharded."""
+    cdt = L.compute_dtype(cfg)
+    dn = cfg.mla_nope_dim
+    ws = [p[m] for m in ("wq_a", "q_norm", "wkv_a", "kv_norm")]
+    axis, n = _seq_axis(x)
+    if axis is not None and h.shape[1] % n == 0:
+        descs = mla_descs(cfg)
+        r = active_rules(x)
+        fn = functools.partial(_mla_latents, cfg=cfg, start=_rows_start(r, h, ROWS_D))
+        cq, c_kv, k_rope = per_shard(
+            fn, [ROWS_D] + [descs[m].axes for m in ("wq_a", "q_norm", "wkv_a", "kv_norm")],
+            [ROWS_D] * 3, constrain(h, ROWS_D), *ws)
+        whole = ("batch", None, None)
+        cq, c_kv_all, k_rope_all = (constrain(t, whole) for t in (cq, c_kv, k_rope))
+    else:
+        cq, c_kv, k_rope = _mla_latents(h, *ws, cfg=cfg, start=start)
+        c_kv_all, k_rope_all = c_kv, k_rope
+    positions = torch.arange(start, start + h.shape[1], device=h.device)[None]
     qf = torch.einsum("bsl,lhk->bshk", cq, p["wq_b"].to(cdt))
     q_nope, q_rope = qf[..., :dn], L.apply_rope(cfg, qf[..., dn:], positions)
-    ckv_f = torch.matmul(h, p["wkv_a"].to(cdt))
-    c_kv = _rms_latent(ckv_f[..., :kl], p["kv_norm"])
-    k_rope = L.apply_rope(cfg, ckv_f[:, :, None, kl:], positions)[:, :, 0]
     q_nope = constrain(q_nope, ("batch", None, "heads", None))
-    return q_nope, q_rope, c_kv, k_rope
+    return q_nope, q_rope, c_kv_all, k_rope_all, (c_kv, k_rope)
 
 
 def apply_mla(cfg: ModelConfig, p, x, *, mode="train", cache=None, pos_t=None):
@@ -634,11 +870,10 @@ def apply_mla(cfg: ModelConfig, p, x, *, mode="train", cache=None, pos_t=None):
     B, S, _ = x.shape
     dn, dr = cfg.mla_nope_dim, cfg.mla_rope_dim
     scale = 1.0 / math.sqrt(dn + dr)
-    h = L.apply_norm(cfg, p["norm"], x)
 
     if mode in ("train", "prefill"):
-        pos = torch.arange(S, device=x.device)[None]
-        q_nope, q_rope, c_kv, k_rope = _mla_common(cfg, p, h, pos)
+        h = L.apply_norm(cfg, p["norm"], x, axes=ROWS_D)
+        q_nope, q_rope, c_kv, k_rope, latents = _mla_common(cfg, p, x, h)
         k_nope = torch.einsum("bsl,lhk->bshk", c_kv, p["wk_b"].to(cdt))
         v = torch.einsum("bsl,lhk->bshk", c_kv, p["wv_b"].to(cdt))
         k_nope = constrain(k_nope, ("batch", None, "heads", None))
@@ -648,14 +883,14 @@ def apply_mla(cfg: ModelConfig, p, x, *, mode="train", cache=None, pos_t=None):
                                         kv_block=cfg.attn_kv_block),
                       [HEADS] * 3, [HEADS], q, k, v)
         out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(o.dtype))
-        new_cache = {"c_kv": c_kv, "k_rope": k_rope} if mode == "prefill" else None
+        new_cache = dict(zip(("c_kv", "k_rope"), latents)) if mode == "prefill" else None
         return L.residual(x, out), new_cache
 
     # ---- absorbed decode: S == 1 ----
     if cache is None:
         raise ValueError("decode needs a cache")
-    pos = torch.full((B, 1), pos_t, device=x.device)
-    q_nope, q_rope, c_kv_new, k_rope_new = _mla_common(cfg, p, h, pos)
+    h = L.apply_norm(cfg, p["norm"], x)
+    q_nope, q_rope, c_kv_new, k_rope_new, _ = _mla_common(cfg, p, x, h, start=pos_t)
     write_row(cache["c_kv"], pos_t, c_kv_new[:, 0])
     write_row(cache["k_rope"], pos_t, k_rope_new[:, 0])
     ckv, krp = cache["c_kv"], cache["k_rope"]

@@ -210,8 +210,10 @@ def _imported_modules(path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
-    # the scheduling stack, the tooling and the benchmarks are in the walk
-    assert {"core", "launch", "distributed", "benchmarks"} <= {f.parent.name for f in files}
+    # the scheduling stack, the tooling, the benchmarks and the examples are
+    # in the walk
+    assert ({"core", "launch", "distributed", "benchmarks", "examples"}
+            <= {f.parent.name for f in files})
     bad = [(f.relative_to(REPO), m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, bad

@@ -21,7 +21,20 @@ a ("data", "model") mesh, and compares the gathered results at f32 1e-5:
   product's gather, prefill and decode;
 - reduced whisper-large-v3 with 6 heads on 1 x 4: the encoder's
   bidirectional rows over its 8 frames, the decoder's causal rows and
-  its cross-attention's rows over the encoder's keys, then decode.
+  its cross-attention's rows over the encoder's keys, then decode; and
+  with 10 frames, which 4 does not divide (the rows padded to 12, the
+  padded keys cut off): prefill, a train step and decode;
+- stablelm-12b shaped, 8 q and 2 kv heads on 1 x 4 (the q heads divide
+  "model", the kv heads do not): each rank projects only the kv head its
+  q heads read; prefill (the cache's rows traded from those heads), a
+  train step and decode, and a 30-token prefill, whose rows 4 does not
+  divide (the cache whole, projected again); reduced gemma3-27b with the
+  same heads and a
+  window of 16 (the ring's k and v from the last 16 positions), prefill
+  and decode; reduced recurrentgemma-9b (4 q heads, 1 kv head: read
+  through a view), window 16, prefill and decode;
+- reduced deepseek-v2-236b on 1 x 4: MLA's down projections on each
+  rank's own rows, the latents gathered; prefill and a train step.
 
 Fake-world cases (`init_fake_world`, meta shards) check the structure by
 `perf_debug`'s call sites and `op_cost`'s counts.
@@ -44,7 +57,11 @@ from repro_torch.launch.mesh import destroy_fake_world, init_fake_world, make_me
 
 CASES = ["qwen2_prefill", "qwen2_train", "qwen2_decode", "gemma3_prefill", "gemma3_decode",
          "granite_e8_prefill", "granite_e8_decode", "granite_e5_prefill", "granite_e5_decode",
-         "mamba_prefill", "mamba_decode", "whisper_prefill", "whisper_decode"]
+         "mamba_prefill", "mamba_decode", "whisper_prefill", "whisper_decode",
+         "whisper10_prefill", "whisper10_train", "whisper10_decode",
+         "stablelm_prefill", "stablelm_train", "stablelm_decode", "stablelm_prefill_30",
+         "gemma3_kv2_prefill", "gemma3_kv2_decode", "rgemma_prefill", "rgemma_decode",
+         "deepseek_prefill", "deepseek_train"]
 
 _WORLD = r'''
 import dataclasses, json, sys, time, traceback
@@ -169,6 +186,8 @@ def decode_case(cfg, mesh_shape, B, S, Tlen):
 def train_case(cfg, mesh_shape, B, S):
     params = draw(cfg)
     batch = {"tokens": tokens(cfg, B, S), "labels": tokens(cfg, B, S, seed=3)}
+    if cfg.enc_dec:
+        batch["enc_feats"] = frames(cfg, B)
     leaves = tree_leaves(params)
     for t in leaves:
         t.requires_grad_(True)
@@ -192,6 +211,12 @@ granite = cfg_of("granite-moe-3b-a800m")
 granite5 = dataclasses.replace(granite, moe=dataclasses.replace(granite.moe, n_experts=5))
 mamba = cfg_of("falcon-mamba-7b")
 whisper = cfg_of("whisper-large-v3", n_heads=6, n_kv_heads=6)
+whisper10 = dataclasses.replace(whisper, enc_frames=10)
+stablelm = cfg_of("stablelm-12b", n_heads=8, n_kv_heads=2)
+gemma3_kv2 = windows(dataclasses.replace(
+    cfg_of("gemma3-27b", n_heads=8, n_kv_heads=2), blocks=gemma3.blocks), 16)
+rgemma = windows(cfg_of("recurrentgemma-9b"), 16)
+deepseek = cfg_of("deepseek-v2-236b")
 CASES = {
     "qwen2_prefill": lambda: prefill_case(qwen2, (1, 4), 2, 32),
     "qwen2_train": lambda: train_case(qwen2, (1, 4), 2, 32),
@@ -206,6 +231,19 @@ CASES = {
     "mamba_decode": lambda: decode_case(mamba, (1, 4), 2, 32, 40),
     "whisper_prefill": lambda: prefill_case(whisper, (1, 4), 2, 16),
     "whisper_decode": lambda: decode_case(whisper, (1, 4), 2, 16, 20),
+    "whisper10_prefill": lambda: prefill_case(whisper10, (1, 4), 2, 16),
+    "whisper10_train": lambda: train_case(whisper10, (1, 4), 2, 16),
+    "whisper10_decode": lambda: decode_case(whisper10, (1, 4), 2, 16, 20),
+    "stablelm_prefill": lambda: prefill_case(stablelm, (1, 4), 2, 32),
+    "stablelm_train": lambda: train_case(stablelm, (1, 4), 2, 32),
+    "stablelm_decode": lambda: decode_case(stablelm, (1, 4), 2, 32, 40),
+    "stablelm_prefill_30": lambda: prefill_case(stablelm, (1, 4), 2, 30),
+    "gemma3_kv2_prefill": lambda: prefill_case(gemma3_kv2, (1, 4), 2, 24),
+    "gemma3_kv2_decode": lambda: decode_case(gemma3_kv2, (1, 4), 2, 24, 32),
+    "rgemma_prefill": lambda: prefill_case(rgemma, (1, 4), 2, 24),
+    "rgemma_decode": lambda: decode_case(rgemma, (1, 4), 2, 24, 32),
+    "deepseek_prefill": lambda: prefill_case(deepseek, (1, 4), 2, 32),
+    "deepseek_train": lambda: train_case(deepseek, (1, 4), 2, 32),
 }
 for name, case in CASES.items():
     t0 = time.time()
@@ -382,3 +420,82 @@ def test_mamba_in_proj_is_not_gathered(shapes):
     product = 4 * 64 * 2 * din * 4                      # f32, whole
     ssm = [r for r in coll if "models/ssm.py" in r[4]]
     assert ssm and all(r[2] < product / 4 for r in ssm), (ssm, product)
+
+
+def _site_flops(cfg, arch, n, fn) -> float:
+    """FLOPs per device of a prefill of `cfg` on a 1 x n fake world, summed
+    over the call sites inside `fn` (a function of `models/attention.py`)."""
+    import inspect
+
+    lines, first = inspect.getsourcelines(fn)
+    counter = _FlopsBySite()
+    with fake_world(n):
+        call, ctx = _cell(cfg, "s_prefill", (1, n), arch=arch)
+        with ctx[0](), ctx[1]():
+            call()
+            with op_cost.alltoall_as_on_a_card(), counter:
+                call()
+    return sum(f for site, f in counter.sites.items()
+               if site.startswith("repro_torch/models/attention.py:")
+               and first <= int(site.rsplit(":", 1)[1]) < first + len(lines))
+
+
+def test_kv_heads_projected_only_where_read(shapes):
+    """stablelm-shaped, 8 q / 2 kv heads on 1 x 4 (q heads divide "model",
+    kv heads do not): each rank projects its 2 q heads and the 1 kv head
+    they read, for k and for v, (2 + 1 + 1) / (8 + 2 + 2) of the world-1
+    projection FLOPs, where the whole kv heads on every rank gave 6 / 12;
+    the cache's rows come from an all-to-all of those heads.  No whole
+    repeated k or v is built (`_repeat_kv` records nothing), and the
+    all-to-all moves no more than a quarter of the cache's k and v."""
+    from repro_torch.models import attention
+
+    cfg = dataclasses.replace(treg.reduced(treg.get_config("stablelm-12b")),
+                              n_heads=8, n_kv_heads=2)
+    one, four = (_site_flops(cfg, "stablelm-12b", n, attention._project) for n in (1, 4))
+    assert 0 < four <= 1.02 * one * 4 / 12, (one, four)
+    with fake_world(4):
+        call, ctx = _cell(cfg, "s_prefill", (1, 4), arch="stablelm-12b")
+        coll, byts = _run(call, ctx, perf_debug.attribute)
+    kv_cache = 2 * 4 * 64 * cfg.n_kv_heads * cfg.head_dim * 4     # k and v (B, S, Hkv, D) f32
+    trades = [r for r in coll if r[3] == "all-to-all" and "models/attention.py" in r[4]]
+    assert trades and all(r[2] <= kv_cache / 4 for r in trades), (trades, kv_cache)
+    import inspect
+    lines, first = inspect.getsourcelines(attention._repeat_kv)
+    at_repeat = [r for r in byts if r[4].startswith("repro_torch/models/attention.py:")
+                 and first <= int(r[4].rsplit(":", 1)[1]) < first + len(lines)]
+    assert not at_repeat, at_repeat
+
+
+def test_mla_down_projections_follow_the_rows(shapes):
+    """Reduced deepseek-v2-236b on 1 x 4: `wq_a` and `wkv_a` read each
+    rank's quarter of the rows, a quarter of the world-1 FLOPs (whole
+    rows on every rank gave all of them)."""
+    from repro_torch.models import attention
+
+    cfg = treg.reduced(treg.get_config("deepseek-v2-236b"))
+    one, four = (_site_flops(cfg, "deepseek-v2-236b", n, attention._mla_latents)
+                 for n in (1, 4))
+    assert 0 < four <= 1.02 * one / 4, (one, four)
+
+
+def test_uneven_bidirectional_rows_split(shapes, caplog):
+    """Reduced whisper-large-v3 with 6 heads and 30 frames on 1 x 4: the
+    encoder's rows are padded to 32 and split, so the attention cores'
+    FLOPs per device are within 1.1x of the world-1 count over 4 (each
+    rank scores 8 of 32 padded rows against the 30 frames: 32 / 30 of a
+    quarter of the encoder's; whole rows on every rank gave 1.33x), and
+    nothing says that rows do not split evenly."""
+    from repro_torch.models import attention
+
+    cfg = dataclasses.replace(treg.reduced(treg.get_config("whisper-large-v3")),
+                              n_heads=6, n_kv_heads=6, enc_frames=30)
+    attention._say_replicated.cache_clear()
+    counts = {}
+    with caplog.at_level("WARNING", logger=attention.__name__):
+        for n in (1, 4):
+            with fake_world(n):
+                call, ctx = _cell(cfg, "s_prefill", (1, n), arch="whisper-large-v3")
+                counts[n] = _core_flops(call, ctx)
+    assert 0 < counts[4] <= 1.1 * counts[1] / 4, counts
+    assert "do not split evenly" not in caplog.text
