@@ -85,9 +85,16 @@ its last line):
      call;
   4d''. train_memory: deepseek-v2-236b cut to 1 dense + 1 MoE layer at full
      width, one forward and backward (batch 1 x 4096, f32 parameters):
-     `torch.cuda.max_memory_allocated` above the parameters beside
+     `torch.cuda.max_memory_allocated` above the parameters, held against
      `op_cost.analyze`'s count of live bytes for the same step on meta
-     tensors, logged, not held; no kernel launched;
+     tensors (counted / measured within [0.90, 1.10]); then the same step
+     on DTensors over a one-rank NCCL mesh (1, 1) under train_4k's axis
+     rules, so that `per_shard` and DTensor both run, held against the
+     count on meta DTensors over a fake one-rank world in the same band,
+     its loss equal to the plain step's at 1e-4; the batch-2 step counted
+     only, which must exceed the card's memory less the parameters (the
+     card runs out there); each number logged with the card's name and
+     power limit; no kernel launched;
   4e. compression: gradient compression with error feedback on the card,
      at full-width qwen2-1.5b's gradient shapes (f32, one tensor per
      parameter leaf, 1.544 B elements from the generator; the largest
@@ -220,8 +227,10 @@ MOLDYN_PAPER_MOLECULES = 244
 EXAMPLE_TOL = dict(rtol=1e-5, atol=1e-5)
 FIT_TOL = dict(rtol=1e-4, atol=1e-5)
 # deepseek-v2-236b cut to 1 dense + 1 MoE layer at full width: one forward
-# and backward at seq 4096 (train_4k's), batch 1, f32 parameters and grads
-MEMORY_ARCH, MEMORY_BATCH = "deepseek-v2-236b", 1
+# and backward at seq 4096 (train_4k's), batch 1, f32 parameters and grads;
+# the count's batch-2 step is only counted (it does not fit the card)
+MEMORY_ARCH, MEMORY_BATCH, MEMORY_BATCH_OOM = "deepseek-v2-236b", 1, 2
+MEMORY_BAND = (0.90, 1.10)     # op_cost's live bytes over the allocator's peak
 # the tooling phases: compression at qwen2-1.5b's gradient shapes, 3 steps a scheme
 COMPRESSION_ARCH, COMPRESSION_STEPS, TOPK_FRAC = "qwen2-1.5b", 3, 0.01
 # the dry run's cells: full width on the 16 x 16 fake world, one process each
@@ -1223,53 +1232,149 @@ def phase_examples(seed):
 def phase_train_memory(seed):
     """deepseek-v2-236b cut to 1 dense + 1 MoE layer at full width: one
     forward and backward of `forward_train` on the card, its peak of
-    allocated bytes above what was allocated before, beside `op_cost`'s
-    count of the bytes live during the same step on meta tensors (what the
-    dry run's temp bytes count).  A measurement; nothing is held."""
+    allocated bytes above what was allocated before, held against
+    `op_cost`'s count of the bytes live during the same step on meta tensors
+    (what the dry run's temp bytes count): the plain step, then the same
+    step on DTensors over a one-rank NCCL mesh under the dry run's axis
+    rules (counted on meta DTensors over a fake one-rank world), each within
+    `MEMORY_BAND`.  The batch-2 step is counted only, beside the card's
+    memory less the parameters."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
     from repro_torch.configs import registry
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.distributed.sharding import AxisRules, use_axis_rules
     from repro_torch.launch import op_cost
+    from repro_torch.launch.mesh import destroy_fake_world, init_fake_world, make_mesh
+    from repro_torch.launch.specs import _batch_spec, axis_rules_for
     from repro_torch.models import transformer as T
-    from repro_torch.models.params import init_tree, tree_leaves, tree_map_desc
+    from repro_torch.models.params import (init_tree, mesh_shape, placements, resolve_spec,
+                                           tree_leaves, tree_map, tree_map_desc)
 
     t0 = time.perf_counter()
+    card = smi_name_and_limit()
     cfg = registry.cut_depth(registry.get_config(MEMORY_ARCH), 1)
     descs = T.build_descriptors(cfg)
     rng = np.random.default_rng(seed)
-    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (MEMORY_BATCH, TRAIN_SEQ))
-                                 .astype(np.int32)) for k in ("tokens", "labels")}
+    tokens = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (MEMORY_BATCH, TRAIN_SEQ))
+                                  .astype(np.int32)) for k in ("tokens", "labels")}
 
     def step(params, batch):
         loss, _ = T.forward_train(cfg, params, batch)
         loss.backward()
         return loss
 
-    def meta(d):
-        t = torch.empty(d.shape, dtype=d.dtype or torch.float32, device="meta")
-        return t.requires_grad_() if t.is_floating_point() else t
+    def grads_on(params):
+        for t in tree_leaves(params):
+            if t.is_floating_point():
+                t.requires_grad_()
+        return params
 
-    counted = op_cost.analyze(step, tree_map_desc(meta, descs),
-                              {k: v.to("meta") for k, v in batch.items()}).peak_bytes
+    def no_grads(params):
+        """`params` with the last run's gradients let go."""
+        for t in tree_leaves(params):
+            t.grad = None
+        return params
+
+    def meta(d):
+        return torch.empty(d.shape, dtype=d.dtype or torch.float32, device="meta")
+
+    def meta_batch(b):
+        return {k: torch.empty(b, TRAIN_SEQ, dtype=torch.int32, device="meta")
+                for k in ("tokens", "labels")}
+
+    def on_mesh(tree, mesh, rules):
+        """Each leaf as a DTensor over `mesh`, its local shard the leaf
+        itself (one rank: no copy), placed by the dry run's rules."""
+        ms = mesh_shape(mesh)
+        pls = tree_map_desc(lambda d: placements(resolve_spec(d, rules, ms), mesh), descs)
+        return tree_map(lambda t, pl: DTensor.from_local(t, mesh, pl, run_check=False),
+                        tree, pls)
+
+    def batch_on(batch, mesh):
+        pl = placements(_batch_spec(mesh, MEMORY_BATCH), mesh)
+        return {k: DTensor.from_local(v, mesh, pl, run_check=False) for k, v in batch.items()}
+
+    def dstep(params, batch, mesh, rules):
+        with implicit_replication(), use_axis_rules(AxisRules(rules, mesh)):
+            return step(params, batch)
+
+    # the counts, on meta tensors
+    counted = op_cost.analyze(step, grads_on(tree_map_desc(meta, descs)),
+                              meta_batch(MEMORY_BATCH)).peak_bytes
+    counted_oom = op_cost.analyze(step, grads_on(tree_map_desc(meta, descs)),
+                                  meta_batch(MEMORY_BATCH_OOM)).peak_bytes
+    init_fake_world(1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cpu")
+        rules = axis_rules_for(cfg, SHAPES["train_4k"], mesh)
+        mparams = grads_on(on_mesh(tree_map_desc(meta, descs), mesh, rules))
+        mbatch = batch_on(tree_map(lambda t: t.to("meta"), tokens), mesh)
+        # the first pass fills DTensor's caches (as the dry run's does)
+        op_cost.analyze(dstep, mparams, mbatch, mesh, rules)
+        counted_dt = op_cost.analyze(dstep, no_grads(mparams), mbatch, mesh, rules).peak_bytes
+        del mparams, mbatch
+    finally:
+        destroy_fake_world()
+
+    def measure(run, params):
+        no_grads(params)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        loss = run()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - before, before, time.perf_counter() - t1, loss
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = grads_on(init_tree(descs, gen, "cuda"))
+    batch = {k: v.to("cuda") for k, v in tokens.items()}
+    measured, param_bytes, step_s, loss = measure(lambda: step(params, batch), params)
+    total = torch.cuda.get_device_properties(0).total_memory
+    rows = [dict(path="plain", measured_peak_bytes=measured, counted_peak_bytes=counted,
+                 counted_over_measured=counted / measured, loss=float(loss.detach()),
+                 step_s=step_s)]
+    del params, loss
     free_card()
-    params = init_tree(descs, torch.Generator(device="cuda").manual_seed(seed), "cuda")
-    for t in tree_leaves(params):
-        if t.is_floating_point():
-            t.requires_grad_()
-    batch = {k: v.to("cuda") for k, v in batch.items()}
-    torch.cuda.synchronize()
-    before = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    t1 = time.perf_counter()
-    loss = step(params, batch)
-    torch.cuda.synchronize()
-    step_s = time.perf_counter() - t1
-    measured = torch.cuda.max_memory_allocated() - before
-    log("train_memory", arch=cfg.name, layers="1 dense + 1 MoE", batch=MEMORY_BATCH,
-        seq_len=TRAIN_SEQ, params=cfg.param_count(), param_bytes=before,
-        measured_peak_bytes=measured, counted_peak_bytes=counted,
-        counted_over_measured=counted / measured, loss=float(loss.detach()), step_s=step_s,
-        card=smi_name_and_limit(), seconds=time.perf_counter() - t0)
-    del params, batch, loss
+
+    # the same step on DTensors over a one-rank NCCL mesh
+    with nccl_world():
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        rules = axis_rules_for(cfg, SHAPES["train_4k"], mesh)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        dparams = grads_on(on_mesh(init_tree(descs, gen, "cuda"), mesh, rules))
+        dbatch = batch_on(batch, mesh)
+        dstep(dparams, dbatch, mesh, rules)      # DTensor's first sight of each op
+        measured_dt, _, step_dt_s, loss_dt = measure(lambda: dstep(dparams, dbatch, mesh, rules),
+                                                      dparams)
+        rows.append(dict(path="dtensor, one-rank NCCL mesh (1, 1), train_4k's axis rules",
+                         measured_peak_bytes=measured_dt, counted_peak_bytes=counted_dt,
+                         counted_over_measured=counted_dt / measured_dt,
+                         loss=float(loss_dt.full_tensor().detach()), step_s=step_dt_s))
+        if not math.isclose(rows[1]["loss"], rows[0]["loss"], rel_tol=1e-4):
+            raise AssertionError(f"train_memory: the DTensor step's loss {rows[1]['loss']} "
+                                 f"is not the plain step's {rows[0]['loss']}")
+        del dparams, dbatch, loss_dt
+    del batch
     free_card()
+    for row in rows:
+        log("train_memory", arch=cfg.name, layers="1 dense + 1 MoE", batch=MEMORY_BATCH,
+            seq_len=TRAIN_SEQ, params=cfg.param_count(), param_bytes=param_bytes, **row,
+            band=MEMORY_BAND, card=card)
+    log("train_memory_oom", arch=cfg.name, batch=MEMORY_BATCH_OOM, seq_len=TRAIN_SEQ,
+        counted_peak_bytes=counted_oom, card_bytes=total, param_bytes=param_bytes,
+        card_less_params=total - param_bytes, predicts_oom=counted_oom > total - param_bytes,
+        card=card, seconds=time.perf_counter() - t0)
+    for row in rows:
+        if not MEMORY_BAND[0] <= row["counted_over_measured"] <= MEMORY_BAND[1]:
+            raise AssertionError(f"train_memory {row['path']}: counted / measured "
+                                 f"{row['counted_over_measured']:.4f} outside {MEMORY_BAND}")
+    if counted_oom <= total - param_bytes:
+        raise AssertionError(f"train_memory: the batch-{MEMORY_BATCH_OOM} count "
+                             f"{counted_oom} fits the card's {total - param_bytes} bytes "
+                             f"beside the parameters, where the card ran out")
 
 
 # ---------------------------------------------------------------------------
@@ -1354,11 +1459,22 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+@contextlib.contextmanager
+def nccl_world():
+    """This process as the one rank of a NCCL process group."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
 def phase_elastic(seed):
     """A one-rank NCCL group; full-width qwen2-1.5b's f32 parameters
     resharded onto `make_mesh_for_dp(1)` must come back bit-equal."""
-    import torch.distributed as dist
-
     from repro_torch.configs import registry
     from repro_torch.distributed.elastic import make_mesh_for_dp, reshard_tree
     from repro_torch.models import transformer as T
@@ -1368,9 +1484,7 @@ def phase_elastic(seed):
     gen.manual_seed(seed)
     descs = T.build_descriptors(registry.get_config(COMPRESSION_ARCH))
     params = init_tree(descs, gen, "cuda")
-    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
-                            rank=0, world_size=1)
-    try:
+    with nccl_world():
         t0 = time.perf_counter()
         mesh = make_mesh_for_dp(1, device_type="cuda")
         t_mesh = time.perf_counter() - t0
@@ -1386,8 +1500,6 @@ def phase_elastic(seed):
         if not same:
             raise AssertionError("elastic: resharded parameters differ from the originals")
         del out, pairs
-    finally:
-        dist.destroy_process_group()
     del params
     free_card()
 

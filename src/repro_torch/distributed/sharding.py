@@ -19,7 +19,7 @@ alone would replicate the work.
 from __future__ import annotations
 
 import contextlib
-import threading
+from types import SimpleNamespace
 from typing import Any
 
 import torch
@@ -28,7 +28,10 @@ from torch.utils._python_dispatch import _get_current_dispatch_mode
 from repro_torch.models.params import (axis_size, contiguous_strides, mesh_shape,
                                        placements, resolve_axes)
 
-_STATE = threading.local()
+# one for the process, not one per thread: on a card the autograd engine
+# runs the backward, and with it each checkpointed region's recompute, on a
+# thread of its own, which must take the partitions the forward took
+_STATE = SimpleNamespace(rules=None)
 
 
 class AxisRules:
@@ -43,7 +46,7 @@ class AxisRules:
 
 @contextlib.contextmanager
 def use_axis_rules(rules: AxisRules | None):
-    prev = getattr(_STATE, "rules", None)
+    prev = _STATE.rules
     _STATE.rules = rules
     try:
         yield
@@ -52,7 +55,7 @@ def use_axis_rules(rules: AxisRules | None):
 
 
 def current_rules() -> AxisRules | None:
-    return getattr(_STATE, "rules", None)
+    return _STATE.rules
 
 
 def _is_dtensor(x) -> bool:

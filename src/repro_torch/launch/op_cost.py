@@ -31,9 +31,16 @@ DTensor's all-to-all runs as on a card's mesh, not as the "cpu" mesh's
 all-gather and chunk (`alltoall_as_on_a_card`).  Eager loops are unrolled in Python, so every trip
 is counted as it runs: the HLO walk's trip-count rule has no counterpart.
 The counter also keeps the peak of the bytes its ops' outputs hold alive
-(`Cost.peak_bytes`), freed when the tensor is; eager execution reuses no
-buffers the way XLA's allocator does, so this is the peak of what the
-program holds, not of a planned arena.
+(`Cost.peak_bytes`): each output's storage counts once, at its size, from
+the op that made it until the storage itself is freed, which is when its
+last holder lets go: a view outlives its base, and autograd keeps what it
+saves after the tensor the program held is gone.  An output on an input's
+storage (in place, `out=`) adds nothing; a functional collective's result
+counts once, though its meta kernel hands it back as a new tensor; and
+autograd's index backward, which a dispatch mode turns out of place, counts
+in place, as the program runs it.  Eager execution reuses no buffers
+the way XLA's allocator does, so this is the peak of what the program
+holds, not of a planned arena.
 """
 from __future__ import annotations
 
@@ -168,20 +175,33 @@ class _OpCounter(TorchDispatchMode):
         super().__init__()
         self.cost = Cost()
         self.live = 0
+        self._held: dict = {}  # storage -> its bytes, while it lives
         self._local = None    # the device of the DTensors' local shards
-        self.memo: dict = {}  # once_per_shape: key -> (Cost, output shapes)
+        self.memo: dict = {}  # once_per_shape: key -> (Cost, storages, outputs on them)
 
-    def _free(self, n: int):
-        self.live -= n
+    def _free(self, key):
+        self.live -= self._held.pop(key, 0)
 
     def _hold(self, outs, ins):
+        """Count each new storage among `outs` until it is freed."""
+        shared = {a.untyped_storage()._cdata for a in ins}
         for t in outs:
-            if any(t is a for a in ins):
-                continue                      # in place: no new buffer
-            n = _nbytes(t)
-            self.live += n
-            weakref.finalize(t, self._free, n)
+            s = t.untyped_storage()
+            key = s._cdata
+            if key in self._held or key in shared:
+                continue                      # in place or a view: no new buffer
+            self._held[key] = s.nbytes()
+            self.live += self._held[key]
+            weakref.finalize(s, self._free, key)
         self.cost.peak_bytes = max(self.cost.peak_bytes, self.live)
+
+    def _pass_on(self, src, dst):
+        """Move `src`'s count to `dst`'s storage: one buffer of the counted
+        program, handed back here as another tensor."""
+        key, new = src.untyped_storage()._cdata, dst.untyped_storage()
+        if key in self._held and new._cdata != key:
+            self._held[new._cdata] = self._held.pop(key)
+            weakref.finalize(new, self._free, new._cdata)
 
     def record(self, func, args, kwargs, out, cost: "Cost"):
         """Add one local op's FLOPs, bytes and wire bytes to `cost`."""
@@ -208,6 +228,10 @@ class _OpCounter(TorchDispatchMode):
             return NotImplemented
         out = func(*args, **(kwargs or {}))
         if func.is_view or func.overloadpacket.__name__ in _VIEWS:
+            if func.overloadpacket is _c10d._wrap_tensor_autograd and type(out) is torch.Tensor:
+                # a collective's result: its meta kernel makes a new tensor,
+                # where a device's run wraps the same buffer
+                self._pass_on(args[0], out)
             return out
         if self._local is not None and not any(
                 t.device == self._local and not isinstance(t, FakeTensor)
@@ -217,6 +241,10 @@ class _OpCounter(TorchDispatchMode):
             # at the global shape on fake tensors
             return out
         self.record(func, args, kwargs, out, self.cost)
+        if func is _aten.index_put.default and torch._C._current_graph_task_id() != -1:
+            # autograd's index backward writes into its zeros out of place
+            # under any dispatch mode (this counter), in place without one
+            self._pass_on(args[0], out)
         self._hold(list(_tensors(out)), list(_tensors((args, kwargs))))
         return out
 
@@ -225,10 +253,13 @@ class _OpCounter(TorchDispatchMode):
         meta tensors: the first call for each (fn, shapes, dtypes) runs and
         is counted as usual; a later one adds that call's cost (its peak on
         top of what is live) and returns fresh meta outputs, without running
-        fn.  On tensors with data, or where autograd records (a replay would
-        leave no graph), fn(*args).  The dry run's counterpart of a scanned
-        body traced once; `distributed.sharding.per_shard` calls it on the
-        current dispatch mode when that mode has it."""
+        fn: outputs on one storage in fn's run share one storage of its size
+        again, with their views' offsets and strides.  On tensors with data,
+        where autograd records (a replay would leave no graph), or for a body
+        with collectives or an output on an input's storage, fn(*args).  The
+        dry run's counterpart of a scanned body traced once;
+        `distributed.sharding.per_shard` calls it on the current dispatch
+        mode when that mode has it."""
         from torch.utils._python_dispatch import _disable_current_modes
 
         tensors = [a for a in args if isinstance(a, torch.Tensor)]
@@ -245,16 +276,25 @@ class _OpCounter(TorchDispatchMode):
             delta = Cost(c.flops - flops, c.bytes - nbytes, peak_bytes=c.peak_bytes - live)
             c.peak_bytes = max(peak, c.peak_bytes)
             outs = out if isinstance(out, tuple) else (out,)
-            if c.coll_wire == wire:             # a body with collectives is not replayed
-                self.memo[key] = (delta, [(tuple(t.shape), t.dtype) for t in outs],
+            stores = {}                         # storage -> (index, bytes)
+            layout = [(stores.setdefault(t.untyped_storage()._cdata,
+                                         (len(stores), t.untyped_storage().nbytes()))[0],
+                       tuple(t.shape), t.stride(), t.storage_offset(), t.dtype) for t in outs]
+            if c.coll_wire == wire and not stores.keys() & {
+                    a.untyped_storage()._cdata for a in tensors}:
+                self.memo[key] = (delta, [n for _, n in stores.values()], layout,
                                   isinstance(out, tuple))
             return out
-        delta, shapes, is_tuple = self.memo[key]
+        delta, sizes, layout, is_tuple = self.memo[key]
         c.flops += delta.flops
         c.bytes += delta.bytes
         c.peak_bytes = max(c.peak_bytes, self.live + delta.peak_bytes)
         with _disable_current_modes():      # the outputs' writes are in delta
-            outs = [torch.empty(shape, dtype=dtype, device="meta") for shape, dtype in shapes]
+            stores = [torch.empty(n, dtype=torch.uint8, device="meta").untyped_storage()
+                      for n in sizes]
+            outs = [torch.empty(0, dtype=dtype, device="meta").set_(stores[i], offset, shape,
+                                                                     stride)
+                    for i, shape, stride, offset, dtype in layout]
         self._hold(outs, [])
         return tuple(outs) if is_tuple else outs[0]
 

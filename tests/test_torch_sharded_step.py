@@ -36,6 +36,18 @@ a ("data", "model") mesh, and compares the gathered results at f32 1e-5:
 - reduced deepseek-v2-236b on 1 x 4: MLA's down projections on each
   rank's own rows, the latents gathered; prefill and a train step.
 
+The same world holds `op_cost`'s live-byte count (the dry run's temp
+bytes) against real per-rank allocations: each rank runs four sharded
+steps on real DTensors under the CPU allocator's profiler (reduced
+deepseek-v2-236b's train step, MLA and MoE in `per_shard`; qwen2's train
+step, DTensor ops and row-split attention; falcon-mamba's prefill, its
+scan in `per_shard`; granite's prefill on 2 x 2 with 8 experts, whose
+all-to-all gloo runs as an all-gather and a chunk), the least peak of
+three runs after a first one; a second launch of 4 processes, each a rank
+of a fake world, counts the same steps on meta DTensors of the same
+layouts, as gloo runs them (without `op_cost.alltoall_as_on_a_card`); the
+count is within 5% of the peak on every rank.
+
 Fake-world cases (`init_fake_world`, meta shards) check the structure by
 `perf_debug`'s call sites and `op_cost`'s counts.
 """
@@ -62,10 +74,12 @@ CASES = ["qwen2_prefill", "qwen2_train", "qwen2_decode", "gemma3_prefill", "gemm
          "stablelm_prefill", "stablelm_train", "stablelm_decode", "stablelm_prefill_30",
          "gemma3_kv2_prefill", "gemma3_kv2_decode", "rgemma_prefill", "rgemma_decode",
          "deepseek_prefill", "deepseek_train"]
+MEMORY_CASES = ["deepseek_train", "qwen2_train", "mamba_prefill", "granite_e8_prefill"]
 
-_WORLD = r'''
-import dataclasses, json, sys, time, traceback
+_COMMON = r'''
+import dataclasses, json, pickle, sys, time, traceback
 from datetime import timedelta
+from types import SimpleNamespace
 import numpy as np
 import torch, torch.distributed as dist
 from torch.distributed.tensor.experimental import implicit_replication
@@ -78,10 +92,10 @@ from repro_torch.launch.specs import axis_rules_for
 from repro_torch.models import transformer as T
 from repro_torch.models.params import ParamDesc, tree_leaves, tree_map, tree_map_desc
 from repro_torch.serve import grow_caches
+sys.path.insert(0, "tests")
+from test_torch_memory import cpu_peak
 
 rank = int(sys.argv[1])
-dist.init_process_group("gloo", store=dist.FileStore(sys.argv[2], 4), rank=rank,
-                        world_size=4, timeout=timedelta(seconds=60))
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
@@ -245,6 +259,85 @@ CASES = {
     "deepseek_prefill": lambda: prefill_case(deepseek, (1, 4), 2, 32),
     "deepseek_train": lambda: train_case(deepseek, (1, 4), 2, 32),
 }
+# memory: each rank's allocator peak over a sharded step on CPU DTensors in
+# the gloo world, and op_cost's count of the same step on meta DTensors of the
+# same layouts, in a fake world at the same rank, in a process of its own
+# (DTensor caches each redistribution's plan, meshes in it, by an equal mesh)
+def train_step(cfg, params, batch):
+    loss, _ = T.forward_train(cfg, params, batch)
+    loss.backward()
+
+
+def prefill_step(cfg, params, tok):
+    with torch.no_grad():
+        T.prefill(cfg, params, tok)
+
+
+STEPS = {"train_4k": train_step, "prefill_32k": prefill_step}
+
+
+def run_step(cfg, ar, shape, args):
+    """The step once, as the dry run's first pass (it fills DTensor's
+    caches), and -> the step again, each run from no gradients."""
+    leaves = [t for t in tree_leaves(args[0]) if t.requires_grad]
+
+    def one():
+        for t in leaves:
+            t.grad = None
+        with implicit_replication(), use_axis_rules(ar):
+            STEPS[shape](cfg, *args)
+    one()
+    return one
+
+
+def memory_case(cfg, mesh_shape, shape, B, S):
+    mesh, rules, ar = world(cfg, mesh_shape, shape)
+    dp = dist_tree(draw(cfg), T.build_descriptors(cfg), mesh, rules)
+    tok = batch_spec_dt(tokens(cfg, B, S), mesh)
+    if shape == "train_4k":
+        for t in tree_leaves(dp):
+            t.requires_grad_(True)
+        args = (dp, {"tokens": tok, "labels": batch_spec_dt(tokens(cfg, B, S, seed=3), mesh)})
+    else:
+        args = (dp, tok)
+    layout = tree_map(lambda t: SimpleNamespace(
+        local=t.to_local().shape, dtype=t.dtype, placements=t.placements, shape=t.shape,
+        stride=t.stride(), requires_grad=t.requires_grad), args)
+    # the least of three runs: a collective's buffer that gloo frees on its
+    # own thread is sometimes still held at the peak
+    one = run_step(cfg, ar, shape, args)
+    return min(cpu_peak(one) for _ in range(3)), layout
+
+
+def counted(cfg, mesh_shape, shape, layout):
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch import op_cost
+    mesh, _, ar = world(cfg, mesh_shape, shape)
+
+    def meta(t):
+        m = DTensor.from_local(torch.empty(t.local, dtype=t.dtype, device="meta"), mesh,
+                               t.placements, run_check=False, shape=t.shape, stride=t.stride)
+        return m.requires_grad_(t.requires_grad)
+
+    one = run_step(cfg, ar, shape, tree_map(meta, layout))
+    # gloo's "cpu" mesh runs DTensor's all-to-all as an all-gather and a
+    # chunk: counted so too, without `op_cost.alltoall_as_on_a_card`
+    counter = op_cost._OpCounter()
+    with counter:
+        one()
+    return counter.cost.peak_bytes
+
+
+MEMORY = {
+    "deepseek_train": (deepseek, (1, 4), "train_4k", 2, 32),
+    "qwen2_train": (qwen2, (1, 4), "train_4k", 2, 32),
+    "mamba_prefill": (mamba, (1, 4), "prefill_32k", 2, 32),
+    "granite_e8_prefill": (granite, (2, 2), "prefill_32k", 4, 16),
+}
+'''
+_WORLD = _COMMON + r'''
+dist.init_process_group("gloo", store=dist.FileStore(sys.argv[2], 4), rank=rank,
+                        world_size=4, timeout=timedelta(seconds=60))
 for name, case in CASES.items():
     t0 = time.time()
     try:
@@ -255,14 +348,44 @@ for name, case in CASES.items():
         traceback.print_exc()
         print("CASE", name, json.dumps({"ok": False, "why": f"{type(e).__name__}: {e}"[:500]}),
               flush=True)
+layouts = {}
+for name, (cfg, mesh_shape, shape, B, S) in MEMORY.items():
+    try:
+        layouts[name] = memory_case(cfg, mesh_shape, shape, B, S)
+    except Exception as e:
+        traceback.print_exc()
+        print("CASE", "mem_" + name, json.dumps({"ok": False, "why": f"{type(e).__name__}: {e}"[:500]}),
+              flush=True)
+with open(f"{sys.argv[2]}.layouts{rank}", "wb") as f:
+    pickle.dump(layouts, f)
+dist.destroy_process_group()
+'''
+_COUNTS = _COMMON + r'''
+from torch.testing._internal.distributed.fake_pg import FakeStore
+dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=4)
+with open(f"{sys.argv[2]}.layouts{rank}", "rb") as f:
+    layouts = pickle.load(f)
+for name, (peak, layout) in layouts.items():
+    cfg, mesh_shape, shape, _, _ = MEMORY[name]
+    try:
+        c = counted(cfg, mesh_shape, shape, layout)
+        print("CASE", "mem_" + name, json.dumps({"ok": True, "peak": peak, "counted": c,
+                                                  "ratio": c / peak}), flush=True)
+    except Exception as e:
+        traceback.print_exc()
+        print("CASE", "mem_" + name, json.dumps({"ok": False, "why": f"{type(e).__name__}: {e}"[:500]}),
+              flush=True)
 dist.destroy_process_group()
 '''
 
 
 @pytest.fixture(scope="module")
 def gloo_world(tmp_path_factory):
-    """Every case's result on each of the 4 ranks, from one launch."""
-    outs = _gloo4(_WORLD, tmp_path_factory.mktemp("gloo"), timeout=240)
+    """Every case's result on each of the 4 ranks, from one launch, and the
+    memory cases' counts from a second launch of 4 fake-world ranks."""
+    tmp = tmp_path_factory.mktemp("gloo")
+    outs = _gloo4(_WORLD, tmp, timeout=240)
+    outs = [(o + co, e + ce) for (o, e), (co, ce) in zip(outs, _gloo4(_COUNTS, tmp, timeout=240))]
     results = []
     for out, err in outs:
         got = {m.group(1): json.loads(m.group(2))
@@ -276,6 +399,18 @@ def test_sharded_step_matches_the_plain_port(case, gloo_world):
     for rank, (got, err) in enumerate(gloo_world):
         assert case in got, f"rank {rank} did not finish {case}: {err[-3000:]}"
         assert got[case]["ok"], (rank, got[case], err[-3000:])
+
+
+@pytest.mark.parametrize("case", MEMORY_CASES)
+def test_sharded_step_count_matches_each_ranks_allocator(case, gloo_world):
+    """`op_cost`'s live-byte count of a rank's step on meta DTensors (a
+    fake world at that rank) within 5% of the CPU allocator's peak while
+    the same rank ran the step on real DTensors in the gloo world."""
+    for rank, (got, err) in enumerate(gloo_world):
+        r = got.get("mem_" + case)
+        assert r is not None, f"rank {rank} did not finish {case}: {err[-3000:]}"
+        assert r["ok"], (rank, r, err[-3000:])
+        assert r["counted"] == pytest.approx(r["peak"], rel=0.05), (rank, r)
 
 
 # ---------------------------------------------------------------------------

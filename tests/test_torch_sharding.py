@@ -8,7 +8,9 @@
   both packages (the reference's `PartitionSpec` read as a tuple);
 - the cases and the property of `tests/test_sharding.py`, run through both;
 - `placements` maps a spec to one `Shard`/`Replicate` per mesh dim, and
-  `constrain` is the identity without active rules.
+  `constrain` is the identity without active rules;
+- the active rules are seen from another thread (a card's backward runs
+  on one).
 
 No process group is needed: the meshes are stand-ins that carry only axis
 names and sizes.
@@ -237,3 +239,20 @@ def test_spec_and_placement_trees():
     # the embedding table: vocab over the model axis
     assert specs["embed"]["table"] == ("model",)
     assert pls["embed"]["table"] == [Replicate(), Shard(0)]
+
+
+def test_axis_rules_reach_other_threads():
+    """On a card the autograd engine runs the backward, and with it each
+    checkpointed region's recompute, on a thread of its own: the active
+    rules are the process's, seen from any thread, so that the recompute
+    takes the partitions the forward took."""
+    import threading
+
+    rules, seen = object(), []
+    with tsh.use_axis_rules(rules):
+        t = threading.Thread(target=lambda: seen.append(tsh.current_rules()))
+        t.start()
+        t.join(10)
+    assert not t.is_alive()
+    assert seen == [rules]
+    assert tsh.current_rules() is None
