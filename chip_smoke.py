@@ -108,15 +108,20 @@ its last line):
      the card; full-width qwen2-1.5b's f32 parameters `reshard_tree`d onto
      it come back bit-equal; the seconds logged; the group destroyed;
   4g. dryrun: `python -m repro_torch.launch.dryrun` for qwen2-1.5b x
-     train_4k, prefill_32k and decode_32k, falcon-mamba-7b x prefill_32k
-     and granite-moe-3b-a800m x prefill_32k on the 16 x 16 fake world (the
-     sharded step's four partitions of its own: query rows for heads that
-     do not divide the model axis, split-T decode, batch-local MoE
-     dispatch, Mamba's in_proj halves), one process per cell, started
-     before 4e (the host traces them while the card compresses); each must
-     exit 0; each cell's per-device GB, FLOPs, wire bytes, three roofline
-     terms and dominant term are logged (H100 cluster predictions, not
-     measurements); no kernel is launched in 4e-4g;
+     train_4k, prefill_32k and decode_32k, falcon-mamba-7b x prefill_32k,
+     granite-moe-3b-a800m x prefill_32k and gemma3-27b x decode_32k on the
+     16 x 16 fake world (the sharded step's four partitions of its own:
+     query rows for heads that do not divide the model axis, split-T
+     decode, batch-local MoE dispatch, Mamba's in_proj halves; one
+     reduction per block output at the residual add), one process per
+     cell, started before 4e (the host traces them while the card
+     compresses); each must exit 0; each cell's per-device GB, FLOPs, wire
+     bytes, three roofline terms and dominant term are logged (H100
+     cluster predictions, not measurements); gemma3-27b decode_32k's
+     collectives must equal, kind by kind, what the step must send
+     (`perf_debug.decode_collectives`: 125 all-reduces, 41 all-gathers),
+     whatever torch version the card's host runs; no kernel
+     is launched in 4e-4g;
   5. time each kernel at its serving shape beside its bound, its plain
      version and, where one PyTorch call computes the same function, that
      call; for the kernels that take exponentials (flash attention, the
@@ -236,7 +241,11 @@ COMPRESSION_ARCH, COMPRESSION_STEPS, TOPK_FRAC = "qwen2-1.5b", 3, 0.01
 # the dry run's cells: full width on the 16 x 16 fake world, one process each
 DRYRUN_CELLS = (("qwen2-1.5b", "train_4k"), ("qwen2-1.5b", "prefill_32k"),
                 ("qwen2-1.5b", "decode_32k"), ("falcon-mamba-7b", "prefill_32k"),
-                ("granite-moe-3b-a800m", "prefill_32k"))
+                ("granite-moe-3b-a800m", "prefill_32k"), ("gemma3-27b", "decode_32k"))
+# the cells whose collectives are held, by kind, to what the step must send
+# (`perf_debug.decode_collectives`, the count tests/test_torch_collectives.py
+# holds the reduced models to): the same on every torch version
+DRYRUN_COUNTED = (("gemma3-27b", "decode_32k"),)
 DRYRUN_TIMEOUT_S = 400
 # tests/test_kernels.py's tolerances
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}                 # flash attention, RG-LRU scan
@@ -1541,6 +1550,15 @@ def phase_dryrun(started):
             memory_s=r["memory_term_s"], collective_s=r["collective_term_s"],
             dominant=r["dominant"], useful=r.get("useful_flops_ratio"),
             mfu_bound=r.get("mfu_bound"), collectives=r["collective_ops"])
+        if (arch, shape) in DRYRUN_COUNTED:
+            from repro_torch.configs.registry import get_config
+            from repro_torch.launch.perf_debug import decode_collectives
+            want = decode_collectives(get_config(arch))
+            got = {k: int(v["count"]) for k, v in r["collective_ops"].items()}
+            log("dryrun_counts", arch=arch, shape=shape, got=got, want=want)
+            if got != want:
+                raise AssertionError(f"dryrun {arch} {shape}: collectives {got}, "
+                                     f"where the step must send {want}")
     log("dryrun", cells=len(procs), seconds=time.perf_counter() - t0,
         torch=torch.__version__)
 

@@ -43,7 +43,7 @@ from repro_torch.launch import op_cost
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.roofline import HW, CollectiveStats, roofline
 from repro_torch.launch.specs import input_specs
-from repro_torch.models.params import tree_leaves, tree_map
+from repro_torch.models.params import tree_leaves
 from repro_torch.optim import adamw
 from repro_torch.train.steps import make_prefill_step, make_serve_step, make_train_step
 
@@ -71,16 +71,14 @@ def local_bytes(tree) -> int:
     return total
 
 
-def _step_call(spec, constrain_grads: bool):
+def _step_call(spec):
     """A no-argument call of the cell's step on its abstract args.  The
     scalars (`step`, `pos_t`) go in as Python ints: the train step at step
     0, the decode step at the cache's last position."""
     cfg = spec.cfg
     if spec.kind == "train":
         params, opt, batch, _ = spec.args
-        gpl = (tree_map(lambda t: list(t.placements), opt["m"])
-               if constrain_grads else None)
-        fn = make_train_step(cfg, adamw.Hyper(), grad_placements=gpl)
+        fn = make_train_step(cfg, adamw.Hyper())
         return lambda: fn(params, opt, batch, 0)
     if spec.kind == "prefill":
         fn = make_prefill_step(cfg)
@@ -90,18 +88,16 @@ def _step_call(spec, constrain_grads: bool):
     return lambda: fn(params, caches, tokens, spec.cell.seq_len - 1)
 
 
-def run_cell(arch: str, shape: str, *, multi_pod: bool = False, mesh=None, cfg=None,
-             constrain_grads: bool = False) -> dict:
+def run_cell(arch: str, shape: str, *, multi_pod: bool = False, mesh=None,
+             cfg=None) -> dict:
     """Trace one cell; `mesh` defaults to the production mesh (built over a
-    fake world of its size).  With `constrain_grads`, a train step lays its
-    gradients out as the optimizer state is (the reference's
-    `grad_shardings` lever)."""
+    fake world of its size)."""
     t0 = time.time()
     mesh = mesh if mesh is not None else make_production_mesh(multi_pod=multi_pod)
     n_chips = mesh.size()
     spec = input_specs(arch, shape, mesh, cfg=cfg)
     cfg = spec.cfg
-    call = _step_call(spec, constrain_grads)
+    call = _step_call(spec)
     t_lower = time.time() - t0
 
     out = []

@@ -71,7 +71,8 @@ import math
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import active_rules, constrain, per_shard, write_row
+from repro_torch.distributed.sharding import (active_rules, constrain, partial_grad, per_shard,
+                                             write_row)
 from repro_torch.models import layers as L
 from repro_torch.models.params import ParamDesc
 
@@ -691,7 +692,9 @@ def apply_attn(cfg: ModelConfig, p, x, *, window: int, causal: bool = True,
                 # each rank projects only the kv heads its q heads read
                 q, = _project_local(h, *p.values(), cfg=cfg, names=tuple(p), which="q",
                                     rope_start=0 if rope else None)
-                kv_src = enc_out if cross else h
+                # the kv heads' `per_shard` passes its gradient of h back
+                # whole, q's product as a partial sum: summed as one
+                kv_src = enc_out if cross else partial_grad(h, "heads")
                 ring = window > 0 and not cross
                 o = _heads_attention(cfg, p, constrain(q, HEADS), kv_src, None, None,
                                      axis=kv_axis, core=core, rope=rope,
@@ -701,7 +704,10 @@ def apply_attn(cfg: ModelConfig, p, x, *, window: int, causal: bool = True,
                 elif mode == "prefill":
                     k, v = _cache_kv(cfg, p, kv_src, window=window, rope=rope)
             else:
-                q, k, v = _project_qkv(cfg, p, h, enc_out if cross else None)
+                # one kv head whole on every rank (`kv_axis`): its products pass
+                # their gradient of h back whole, q's as a partial sum
+                kv_x = enc_out if cross else partial_grad(h, "heads") if kv_axis else None
+                q, k, v = _project_qkv(cfg, p, h, kv_x)
                 if rope:
                     pos = torch.arange(S, device=x.device)[None]
                     q = L.positions_for(cfg, q, pos)
@@ -748,7 +754,7 @@ def apply_attn(cfg: ModelConfig, p, x, *, window: int, causal: bool = True,
         o = _decode_per_shard(q, _expand_kv(cfg, cache["k"]), _expand_kv(cfg, cache["v"]),
                               torch.ones(T, dtype=torch.bool, device=x.device), scale)
         out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(o.dtype))
-        return x + out, cache
+        return L.residual(x, out), cache
     q, k, v = _project_qkv(cfg, p, h)
     pos = torch.full((B, 1), pos_t, device=x.device)
     if cfg.pos_embed == "rope":
@@ -772,7 +778,7 @@ def apply_attn(cfg: ModelConfig, p, x, *, window: int, causal: bool = True,
         mask = torch.arange(T, device=x.device)[None] <= pos_t
         o = _decode(cfg, q, cache["k"], cache["v"], mask, scale)
     out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(o.dtype))
-    return x + out, cache
+    return L.residual(x, out), cache
 
 
 # ---------------------------------------------------------------------------
@@ -913,7 +919,7 @@ def apply_mla(cfg: ModelConfig, p, x, *, mode="train", cache=None, pos_t=None):
                         q_eff, q_rope, ckv, krp, mask).to(cdt)
     o = torch.einsum("bshl,lhk->bshk", o_c, p["wv_b"].to(cdt))
     out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(cdt))
-    return x + out, cache
+    return L.residual(x, out), cache
 
 
 def _mla_slice(q_eff, q_rope, ckv, krp, mask, *, scale, group, n):

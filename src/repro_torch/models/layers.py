@@ -9,7 +9,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import add_partial, constrain, embed_rows
 from repro_torch.models.params import ParamDesc
 
 
@@ -87,13 +87,19 @@ def rms_head_norm(scale, x, eps: float = 1e-6):
     return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
 
 
+STREAM = ("batch", "seq_act", None)     # the residual stream (B, S, d)
+
+
 def residual(x, out):
     """x + out, a block's output added to the residual stream.  Under the dry
-    run's rules `out` is laid out as the stream is first, explicitly, so
-    that in the backward its gradient comes back gathered along the
-    sequence (a sequence-sharded gradient cannot be flattened into the
-    products' rows without a strided shard); elsewhere a plain add."""
-    return x + constrain(out, ("batch", "seq_act", None))
+    run's rules `out` is laid out as the stream is first, explicitly: the
+    partial sum a sharded output projection leaves is reduced here, once a
+    block, whatever a torch version's rule for adding a partial sum to a
+    replicated stream would choose, and in the backward the gradient comes
+    back gathered along the sequence (a sequence-sharded gradient cannot be
+    flattened into the products' rows without a strided shard); elsewhere a
+    plain add."""
+    return x + constrain(out, STREAM)
 
 
 # ---------------------------------------------------------------------------
@@ -125,7 +131,7 @@ def apply_ffn(cfg: ModelConfig, p, x):
         out = torch.matmul(act(g) * u, p["w2"].to(cdt))
     else:
         z = act(torch.matmul(h, p["w1"].to(cdt)) + p["b1"].to(cdt))
-        out = torch.matmul(z, p["w2"].to(cdt)) + p["b2"].to(cdt)
+        out = add_partial(torch.matmul(z, p["w2"].to(cdt)), p["b2"].to(cdt))
     return residual(x, out)
 
 
@@ -144,7 +150,10 @@ def embed_descs(cfg: ModelConfig):
 
 def apply_embed(cfg: ModelConfig, params, tokens):
     cdt = compute_dtype(cfg)
-    x = F.embedding(tokens, params["embed"]["table"]).to(cdt)
+    # under the dry run's rules the lookup's partial sums over the
+    # vocab-sharded table are reduced at once, in the compute dtype, before
+    # anything else reads them
+    x = constrain(embed_rows(params["embed"]["table"], tokens, cdt), STREAM)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cdt)
     return x

@@ -35,7 +35,7 @@ import math
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import active_rules, per_shard
+from repro_torch.distributed.sharding import active_rules, add_partial, per_shard
 from repro_torch.models import layers as L
 from repro_torch.models.params import ParamDesc, axis_size, placements
 
@@ -230,5 +230,5 @@ def apply_moe(cfg: ModelConfig, p, x):
         cdt = h.dtype
         act = L.act_fn(cfg.act)
         z = act(torch.matmul(h, sp["w1"].to(cdt))) * torch.matmul(h, sp["w3"].to(cdt))
-        out = out + torch.matmul(z, sp["w2"].to(cdt))
+        out = add_partial(out, torch.matmul(z, sp["w2"].to(cdt)))
     return L.residual(x, out), aux * m.aux_loss_weight

@@ -120,12 +120,14 @@ def apply_rglru(cfg: ModelConfig, p, x, *, mode="prefill", cache=None, pos_t=Non
     if cache is None:
         raise ValueError("decode needs a cache")
     uc, window = conv_step(cache["conv"], u, p["conv_w"].to(cdt), p["conv_b"].to(cdt))
-    a_gate = torch.einsum("bw,wv->bv", uc, p["gate_a"].to(cdt))
-    x_gate = torch.einsum("bw,wv->bv", uc, p["gate_x"].to(cdt))
+    # the gate products sum over the sharded width: each reduced into the
+    # state's layout (a no-op outside the dry run)
+    a_gate = constrain(torch.einsum("bw,wv->bv", uc, p["gate_a"].to(cdt)), ("batch", "rnn"))
+    x_gate = constrain(torch.einsum("bw,wv->bv", uc, p["gate_x"].to(cdt)), ("batch", "rnn"))
     at, bt = recurrence_inputs(p["a_param"], a_gate, x_gate, uc, r.c)
     h_new = at * cache["state"] + bt
     out = torch.einsum("bw,wd->bd", h_new.to(cdt) * gate[:, 0],
                        p["out_proj"].to(cdt))[:, None]
     cache["state"].copy_(h_new)
     cache["conv"].copy_(window[:, 1:])
-    return x + out, cache
+    return L.residual(x, out), cache

@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import active_rules, constrain, per_shard
+from repro_torch.distributed.sharding import active_rules, constrain, partial_grad, per_shard
 from repro_torch.models import layers as L
 from repro_torch.models.params import ParamDesc
 
@@ -129,7 +129,10 @@ def _gates(cfg: ModelConfig, p, xc):
     # the product sums over the sharded width: reduce it before it is cut
     # (a no-op outside the dry run)
     proj = constrain(proj, ("batch", None, None))
-    dt_r, Bm, Cm = proj[..., :dtr], proj[..., dtr:dtr + N], proj[..., dtr + N:]
+    # the scan passes its gradients of Bm and Cm back whole, dt_proj's
+    # product that of dt_r as a partial sum: summed as one
+    bc = partial_grad(proj, "inner")
+    dt_r, Bm, Cm = proj[..., :dtr], bc[..., dtr:dtr + N], bc[..., dtr + N:]
     dt = F.softplus(torch.einsum("bsr,rd->bsd", dt_r, p["dt_proj"].to(cdt))
                     + p["dt_bias"].to(cdt))
     return dt, Bm, Cm
@@ -204,4 +207,4 @@ def apply_mamba(cfg: ModelConfig, p, x, *, mode="prefill", cache=None, pos_t=Non
     out = torch.einsum("bsd,de->bse", y * F.silu(z), p["out_proj"].to(cdt))
     cache["state"].copy_(h_new)
     cache["conv"].copy_(window[:, 1:])
-    return x + out, cache
+    return L.residual(x, out), cache

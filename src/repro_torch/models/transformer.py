@@ -27,7 +27,7 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import constrain, gather_last
+from repro_torch.distributed.sharding import add_partial, add_whole, constrain, gather_last
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
@@ -223,7 +223,7 @@ def run_blocks(cfg: ModelConfig, blocks_params, x, *, mode, caches=None,
 def _run_blocks_train(cfg: ModelConfig, blocks_params, x, enc_out, block_cfgs):
     """-> (x, aux summed over every layer)."""
     cdt = L.compute_dtype(cfg)
-    aux = torch.zeros((), device=x.device)
+    auxes = [torch.zeros((), device=x.device)]
     for gi, (pattern, reps) in enumerate(block_cfgs):
         gp = blocks_params[gi]
         if cfg.bf16_param_stack:
@@ -232,18 +232,20 @@ def _run_blocks_train(cfg: ModelConfig, blocks_params, x, enc_out, block_cfgs):
             gp = tree_map(lambda t: t.to(cdt) if t.is_floating_point() else t, gp)
 
         def body(x, p_r, enc_out, _pattern=pattern):
-            aux = torch.zeros((), device=x.device)
+            auxes = [torch.zeros((), device=x.device)]
             for i, spec in enumerate(_pattern):
                 x, _, a = apply_layer(cfg, spec, p_r[f"l{i}"], x, mode="train",
                                       cache=None, pos_t=None, enc_out=enc_out)
-                aux = aux + a
-            return x, aux
+                auxes.append(a)
+            return x, add_partial(*auxes)
 
         body = _remat(cfg, body)
         for p_r in _unstack(gp, reps):
             x, a = body(x, p_r, enc_out)
-            aux = aux + a
-    return x, aux
+            auxes.append(a)
+    # under the dry run's rules a MoE layer's balance loss is a partial sum
+    # over the batch shards: summed as one, reduced with the loss
+    return x, add_partial(*auxes)
 
 
 # ---------------------------------------------------------------------------
@@ -273,9 +275,6 @@ def embed_tokens(cfg: ModelConfig, params, tokens, pos_offset=0):
     pos_offset, pos_offset + 1, ... added."""
     x = L.apply_embed(cfg, params, tokens)
     if cfg.pos_embed == "sinusoidal":
-        # under the dry run's rules the embedding's partial sums over the
-        # vocab-sharded table are reduced before anything is added to them
-        x = constrain(x, ("batch", "seq_act", None))
         pos = pos_offset + torch.arange(tokens.shape[1], device=tokens.device)
         x = x + L.sinusoidal_pos(cfg.d_model, pos)[None].to(x.dtype)
     return constrain(x, ("batch", "seq_act", None))
@@ -320,11 +319,11 @@ def chunked_ce_loss(cfg: ModelConfig, params, x, labels):
         ll = gather_last(logits, y_c[..., None].long())[..., 0]
         return (lse - ll).sum()
 
-    total = torch.zeros((), device=x.device)
-    for c0 in range(0, S, ch):
-        total = total + ckpt.checkpoint(chunk_fn, x[:, c0:c0 + ch],
-                                        labels[:, c0:c0 + ch], use_reentrant=False)
-    return total / (B * S)
+    # under the dry run's rules each chunk's sum is a partial sum over the
+    # rows' shards: the chunks are summed as one, reduced once
+    return add_whole(*(ckpt.checkpoint(chunk_fn, x[:, c0:c0 + ch], labels[:, c0:c0 + ch],
+                                       use_reentrant=False)
+                       for c0 in range(0, S, ch))) / (B * S)
 
 
 def forward_train(cfg: ModelConfig, params, batch):
@@ -339,7 +338,7 @@ def forward_train(cfg: ModelConfig, params, batch):
     if cfg.cotangent_dtype:
         x = L.cotangent_cast(x, getattr(torch, cfg.cotangent_dtype))
     ce = chunked_ce_loss(cfg, params, x, batch["labels"])
-    return ce + aux, {"ce": ce, "aux": aux}
+    return add_whole(ce, aux), {"ce": ce, "aux": aux}
 
 
 def prefill(cfg: ModelConfig, params, tokens, enc_feats=None):

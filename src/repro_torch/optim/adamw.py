@@ -15,6 +15,7 @@ import math
 
 import torch
 
+from repro_torch.distributed.sharding import add_whole
 from repro_torch.models.params import tree_leaves, tree_map
 
 
@@ -51,7 +52,7 @@ def init(params):
 
 
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in tree_leaves(tree)))
+    return torch.sqrt(add_whole(*(torch.sum(torch.square(t.float())) for t in tree_leaves(tree))))
 
 
 def clip_by_global_norm(grads, max_norm):

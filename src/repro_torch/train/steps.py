@@ -4,7 +4,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import constrain, current_rules, lay_out
 from repro_torch.models import transformer as T
 from repro_torch.models.params import tree_leaves, tree_map
 from repro_torch.optim import adamw
@@ -23,14 +23,18 @@ def make_train_step(cfg: ModelConfig, hp: adamw.Hyper, grad_placements=None):
     norm and AdamW is applied.  metrics: loss, ce, aux, grad_norm, lr (0-dim
     tensors).
 
-    grad_placements: optional tree of DTensor placement lists matching
-    params (the reference's `grad_shardings`): each gradient is
-    redistributed to its placements, so that the weight-gradient reductions
-    become reduce-scatters into that layout instead of full all-reduces.
-    Only for DTensor parameters on a mesh (the dry run).
+    On DTensor parameters under the dry run's axis rules, each gradient is
+    laid out as its optimizer state `opt_state["m"]` is, so that the
+    weight-gradient reductions are reduce-scatters into that layout (where
+    the optimizer's own ops would leave the reduction's kind to DTensor,
+    which picks it by torch version; the reference's `grad_shardings`).
+    grad_placements, an optional tree of DTensor placement lists matching
+    params, names another layout: the dry run's tests lay the gradients
+    out as the parameters to weigh the default's wire bytes against.
+    Elsewhere the gradients are left as autograd gives them.
     """
 
-    def grad_fn(params, batch):
+    def grad_fn(params, batch, layout):
         # detached views of the leaves (no copy) that autograd tracks, so
         # the caller's tensors are left as they are
         tracked = tree_map(lambda t: t.detach().requires_grad_(), params)
@@ -39,12 +43,14 @@ def make_train_step(cfg: ModelConfig, hp: adamw.Hyper, grad_placements=None):
         grads = torch.autograd.grad(loss, leaves)
         by_leaf = {id(p): g for p, g in zip(tree_leaves(params), grads)}
         grads = tree_map(lambda p: by_leaf[id(p)], params)
-        if grad_placements is not None:
-            grads = tree_map(lambda g, pl: g.redistribute(g.device_mesh, pl),
-                             grads, grad_placements)
+        if layout is not None:
+            grads = tree_map(lay_out, grads, layout)
         return (loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads)
 
     def train_step(params, opt_state, batch, step):
+        layout = grad_placements
+        if layout is None and current_rules() is not None:
+            layout = tree_map(lambda m: list(m.placements), opt_state["m"])
         if hp.microbatches > 1:
             mb = hp.microbatches
 
@@ -56,7 +62,7 @@ def make_train_step(cfg: ModelConfig, hp: adamw.Hyper, grad_placements=None):
             loss_sum = torch.zeros((), device=batch["tokens"].device)
             ms = []
             for i in range(mb):
-                loss_i, m_i, g_i = grad_fn(params, tree_map(lambda x: x[i], batches))
+                loss_i, m_i, g_i = grad_fn(params, tree_map(lambda x: x[i], batches), layout)
                 tree_map(lambda a, g: a.add_(g.float()), grads, g_i)
                 loss_sum = loss_sum + loss_i
                 ms.append(m_i)
@@ -65,7 +71,7 @@ def make_train_step(cfg: ModelConfig, hp: adamw.Hyper, grad_placements=None):
             loss = loss_sum / mb
             metrics = {k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
         else:
-            loss, metrics, grads = grad_fn(params, batch)
+            loss, metrics, grads = grad_fn(params, batch, layout)
 
         grads, gnorm = adamw.clip_by_global_norm(grads, hp.clip)
         params, opt_state = adamw.update(grads, opt_state, params, step, hp)

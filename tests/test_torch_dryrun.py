@@ -166,18 +166,31 @@ def test_world_one_prefill_flops_equal_the_plain_step(arch, tiny_shapes):
 
 
 def test_gradient_layout_cuts_the_train_step_wire_bytes(tiny_shapes):
-    """`constrain_grads` (the reference's `grad_shardings` lever) lays each
-    gradient out as its optimizer state is: the weight-gradient reductions
-    become reduce-scatters into that layout, fewer bytes on the wire."""
+    """The dry run's train step lays each gradient out as its optimizer
+    state is (the reference's `grad_shardings`): the weight-gradient
+    reductions are reduce-scatters into that layout, fewer bytes on the
+    wire than the same step with `grad_placements` naming the parameters'
+    layout (gradients all-reduced over the batch shards)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.distributed.sharding import AxisRules, use_axis_rules
+    from repro_torch.models.params import tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import make_train_step
+
     cfg = treg.reduced(treg.get_config("qwen2-1.5b"))
     with fake_world(4):
         mesh = make_mesh((2, 2), ("data", "model"), "cpu")
         base = dryrun.run_cell("qwen2-1.5b", "tiny_train", mesh=mesh, cfg=cfg)
-        pinned = dryrun.run_cell("qwen2-1.5b", "tiny_train", mesh=mesh, cfg=cfg,
-                                 constrain_grads=True)
-    assert (pinned["roofline"]["collective_bytes_per_device"]
-            < base["roofline"]["collective_bytes_per_device"])
-    assert pinned["memory"]["argument_bytes"] == base["memory"]["argument_bytes"]
+        spec = tspecs.input_specs("qwen2-1.5b", "tiny_train", mesh, cfg=cfg)
+        params, opt, batch, _ = spec.args
+        step = make_train_step(cfg, adamw.Hyper(), grad_placements=tree_map(
+            lambda t: list(t.placements), params))
+        with implicit_replication(), use_axis_rules(AxisRules(spec.rules, mesh)):
+            op_cost.analyze(lambda: step(params, opt, batch, 0))
+            whole = op_cost.analyze(lambda: step(params, opt, batch, 0))
+    assert base["roofline"]["collective_bytes_per_device"] < whole.coll_wire
+    assert base["memory"]["argument_bytes"] == dryrun.local_bytes(spec.args)
 
 
 def test_local_mesh_and_fake_world():

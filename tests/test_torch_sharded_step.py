@@ -34,7 +34,11 @@ a ("data", "model") mesh, and compares the gathered results at f32 1e-5:
   and decode; reduced recurrentgemma-9b (4 q heads, 1 kv head: read
   through a view), window 16, prefill and decode;
 - reduced deepseek-v2-236b on 1 x 4: MLA's down projections on each
-  rank's own rows, the latents gathered; prefill and a train step.
+  rank's own rows, the latents gathered; prefill and a train step; and
+  the absorbed decode over the T-sharded latent cache (split-T);
+- qwen2 with 8 q heads and 2 kv heads on 1 x 4 (the q heads divide
+  "model"): one decode step, each block output reduced at the residual
+  add.
 
 The same world holds `op_cost`'s live-byte count (the dry run's temp
 bytes) against real per-rank allocations: each rank runs four sharded
@@ -69,11 +73,12 @@ from repro_torch.launch.mesh import destroy_fake_world, init_fake_world, make_me
 
 CASES = ["qwen2_prefill", "qwen2_train", "qwen2_decode", "gemma3_prefill", "gemma3_decode",
          "granite_e8_prefill", "granite_e8_decode", "granite_e5_prefill", "granite_e5_decode",
-         "mamba_prefill", "mamba_decode", "whisper_prefill", "whisper_decode",
+         "mamba_prefill", "mamba_decode", "mamba_train", "whisper_prefill", "whisper_decode",
          "whisper10_prefill", "whisper10_train", "whisper10_decode",
          "stablelm_prefill", "stablelm_train", "stablelm_decode", "stablelm_prefill_30",
          "gemma3_kv2_prefill", "gemma3_kv2_decode", "rgemma_prefill", "rgemma_decode",
-         "deepseek_prefill", "deepseek_train"]
+         "rgemma_train", "deepseek_prefill", "deepseek_train", "deepseek_decode",
+         "qwen2_h8_decode", "qwen2_step"]
 MEMORY_CASES = ["deepseek_train", "qwen2_train", "mamba_prefill", "granite_e8_prefill"]
 
 _COMMON = r'''
@@ -218,6 +223,36 @@ def train_case(cfg, mesh_shape, B, S):
     return close([dloss] + [t.grad for t in dleaves], [loss] + [t.grad for t in leaves])
 
 
+def step_case(cfg, mesh_shape, B, S, steps=2):
+    """`make_train_step`'s losses and grad norms over `steps` steps, then
+    the parameters and moments, on DTensors under the rules (the moments
+    laid out as the dry run lays them, `launch/specs.opt_specs`, and the
+    gradients by default as the moments) against the plain step."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.launch.specs import opt_specs
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import make_train_step
+
+    step = make_train_step(cfg, adamw.Hyper())
+    params = draw(cfg)
+    batch = {"tokens": tokens(cfg, B, S), "labels": tokens(cfg, B, S, seed=3)}
+    mesh, rules, ar = world(cfg, mesh_shape, "train_4k")
+    dp = dist_tree(tree_map(torch.clone, params), T.build_descriptors(cfg), mesh, rules)
+    dopt = tree_map(lambda s: distribute_tensor(torch.zeros(s.shape), mesh, s.placements),
+                    opt_specs(cfg, mesh, rules))
+    opt = adamw.init(params)
+    want, got = [], []
+    for i in range(steps):
+        params, opt, m = step(params, opt, batch, i)
+        want += [m["loss"], m["grad_norm"]]
+    with implicit_replication(), use_axis_rules(ar):
+        db = {k: batch_spec_dt(v, mesh) for k, v in batch.items()}
+        for i in range(steps):
+            dp, dopt, m = step(dp, dopt, db, i)
+            got += [m["loss"], m["grad_norm"]]
+    return close(got + [dp, dopt], want + [params, opt])
+
+
 qwen2 = cfg_of("qwen2-1.5b", n_heads=6, n_kv_heads=2)
 gemma3 = cfg_of("gemma3-27b", n_heads=6, n_kv_heads=2)
 gemma3 = windows(dataclasses.replace(gemma3, blocks=((gemma3.blocks[0][0][-2:], 1),)), 16)
@@ -231,6 +266,7 @@ gemma3_kv2 = windows(dataclasses.replace(
     cfg_of("gemma3-27b", n_heads=8, n_kv_heads=2), blocks=gemma3.blocks), 16)
 rgemma = windows(cfg_of("recurrentgemma-9b"), 16)
 deepseek = cfg_of("deepseek-v2-236b")
+qwen2_h8 = cfg_of("qwen2-1.5b", n_heads=8, n_kv_heads=2)
 CASES = {
     "qwen2_prefill": lambda: prefill_case(qwen2, (1, 4), 2, 32),
     "qwen2_train": lambda: train_case(qwen2, (1, 4), 2, 32),
@@ -243,6 +279,7 @@ CASES = {
     "granite_e5_decode": lambda: decode_case(granite5, (2, 2), 4, 16, 20),
     "mamba_prefill": lambda: prefill_case(mamba, (1, 4), 2, 32),
     "mamba_decode": lambda: decode_case(mamba, (1, 4), 2, 32, 40),
+    "mamba_train": lambda: train_case(mamba, (1, 4), 2, 32),
     "whisper_prefill": lambda: prefill_case(whisper, (1, 4), 2, 16),
     "whisper_decode": lambda: decode_case(whisper, (1, 4), 2, 16, 20),
     "whisper10_prefill": lambda: prefill_case(whisper10, (1, 4), 2, 16),
@@ -256,8 +293,12 @@ CASES = {
     "gemma3_kv2_decode": lambda: decode_case(gemma3_kv2, (1, 4), 2, 24, 32),
     "rgemma_prefill": lambda: prefill_case(rgemma, (1, 4), 2, 24),
     "rgemma_decode": lambda: decode_case(rgemma, (1, 4), 2, 24, 32),
+    "rgemma_train": lambda: train_case(rgemma, (1, 4), 2, 24),
     "deepseek_prefill": lambda: prefill_case(deepseek, (1, 4), 2, 32),
     "deepseek_train": lambda: train_case(deepseek, (1, 4), 2, 32),
+    "deepseek_decode": lambda: decode_case(deepseek, (1, 4), 2, 32, 40),
+    "qwen2_h8_decode": lambda: decode_case(qwen2_h8, (1, 4), 2, 32, 40),
+    "qwen2_step": lambda: step_case(qwen2, (2, 2), 4, 32),
 }
 # memory: each rank's allocator peak over a sharded step on CPU DTensors in
 # the gloo world, and op_cost's count of the same step on meta DTensors of the
@@ -448,7 +489,7 @@ def _cell(cfg, shape, mesh_shape, arch="qwen2-1.5b"):
 
     mesh = make_mesh(mesh_shape, ("data", "model"), "cpu")
     spec = input_specs(arch, shape, mesh, cfg=cfg)
-    call = dryrun._step_call(spec, False)
+    call = dryrun._step_call(spec)
     return call, (implicit_replication, lambda: use_axis_rules(AxisRules(spec.rules, mesh)))
 
 
