@@ -120,8 +120,11 @@ its last line):
      cluster predictions, not measurements); gemma3-27b decode_32k's
      collectives must equal, kind by kind, what the step must send
      (`perf_debug.decode_collectives`: 125 all-reduces, 41 all-gathers),
-     whatever torch version the card's host runs; no kernel
-     is launched in 4e-4g;
+     whatever torch version the card's host runs; qwen2-1.5b train_4k's
+     temp bytes must be below one whole f32 loss chunk of a data shard's
+     rows (16 x 512 x 152,064 x 4 B = 4.98 GB: no chunk's logits are
+     gathered along the vocab), logged beside its all-gather count; no
+     kernel is launched in 4e-4g;
   5. time each kernel at its serving shape beside its bound, its plain
      version and, where one PyTorch call computes the same function, that
      call; for the kernels that take exponentials (flash attention, the
@@ -246,6 +249,10 @@ DRYRUN_CELLS = (("qwen2-1.5b", "train_4k"), ("qwen2-1.5b", "prefill_32k"),
 # (`perf_debug.decode_collectives`, the count tests/test_torch_collectives.py
 # holds the reduced models to): the same on every torch version
 DRYRUN_COUNTED = (("gemma3-27b", "decode_32k"),)
+# the train cells whose temp bytes must stay below one whole f32 loss chunk
+# of a data shard's rows (16 x 512 x 152,064 x 4 B = 4.98 GB for
+# qwen2-1.5b): the step keeps each chunk's logits vocab-sharded
+DRYRUN_LOSS_HELD = (("qwen2-1.5b", "train_4k"),)
 DRYRUN_TIMEOUT_S = 400
 # tests/test_kernels.py's tolerances
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}                 # flash attention, RG-LRU scan
@@ -1559,6 +1566,18 @@ def phase_dryrun(started):
             if got != want:
                 raise AssertionError(f"dryrun {arch} {shape}: collectives {got}, "
                                      f"where the step must send {want}")
+        if (arch, shape) in DRYRUN_LOSS_HELD:
+            from repro_torch.configs.base import SHAPES
+            from repro_torch.configs.registry import get_config
+            cfg = get_config(arch)
+            data = int(rec["mesh"].split("x")[0])          # "16x16": (data, model)
+            chunk = SHAPES[shape].global_batch // data * cfg.loss_chunk * cfg.vocab_padded * 4
+            gathers = r["collective_ops"].get("all-gather", {}).get("count", 0)
+            log("dryrun_loss", arch=arch, shape=shape, temp_gb=m["temp_bytes"] / 1e9,
+                loss_chunk_gb=chunk / 1e9, all_gathers=int(gathers))
+            if m["temp_bytes"] >= chunk:
+                raise AssertionError(f"dryrun {arch} {shape}: temp {m['temp_bytes'] / 1e9:.3f} GB, "
+                                     f"not below one whole f32 loss chunk ({chunk / 1e9:.3f} GB)")
     log("dryrun", cells=len(procs), seconds=time.perf_counter() - t0,
         torch=torch.__version__)
 

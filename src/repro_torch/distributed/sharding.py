@@ -13,13 +13,15 @@ its own rows; `add_partial`, `add_whole` and `partial_grad` keep a sum of
 whole and partial tensors (or of their gradients) partial, without a
 collective, where DTensor's own rule for the add differs between torch
 versions; `lay_out` lays a tensor out by DTensor placements.
-`per_shard` runs a function on each rank's local shards, `write_row`
-writes one row into a cache sharded along its rows (only the rank that
-holds the row writes), and `gather_last` picks one entry of a row whose
-last dim is sharded (the loss's label logit over a vocab-sharded row):
-also only under active rules.  `active_rules` lets model code choose a
-partition of its own (query rows, split-T decode) where the rules' layout
-alone would replicate the work.
+`per_shard` runs a function on each rank's local shards, `per_row` a
+function of each row on each rank's own rows, in the tensor's layout,
+`write_row` writes one row into a cache sharded along its rows (only the
+rank that holds the row writes), `gather_last` picks one entry of a row
+whose last dim is sharded (the loss's label logit over a vocab-sharded
+row), and `logsumexp_last` takes such a row's log-sum-exp on each rank's
+own columns: also only under active rules.  `active_rules` lets model
+code choose a partition of its own (query rows, split-T decode) where the
+rules' layout alone would replicate the work.
 """
 from __future__ import annotations
 
@@ -275,6 +277,31 @@ def _names(mesh_axes) -> tuple:
     return (mesh_axes,) if isinstance(mesh_axes, str) else tuple(mesh_axes)
 
 
+def per_row(fn, x):
+    """fn(x), for an fn that works on each row of x (its last dim) alone and
+    returns one tensor, or a tuple of them, with x's leading dims (each
+    row's top k).
+
+    Under active rules with x a DTensor whose last dim no mesh dim splits
+    and which holds no partial sum, fn runs on each rank's own rows and
+    each result is laid out as x is, forward and backward: no collective,
+    where DTensor's own rules for fn's ops gather on some torch versions
+    (the backward of a top-k, on torch 2.11).  Otherwise fn(x)."""
+    r = current_rules()
+    if r is None or not _is_dtensor(x) or any(p.is_partial() or p.is_shard(x.ndim - 1)
+                                             for p in x.placements):
+        return fn(x)
+    from torch.distributed.tensor import DTensor
+
+    def rows(t):
+        shape = tuple(x.shape[:-1]) + tuple(t.shape[-1:])
+        return DTensor.from_local(t, r.mesh, x.placements, run_check=False,
+                                  shape=torch.Size(shape), stride=contiguous_strides(shape))
+
+    out = fn(x.to_local())
+    return tuple(map(rows, out)) if isinstance(out, tuple) else rows(out)
+
+
 def per_shard(fn, in_axes, out_axes, *args):
     """fn on each rank's shards, for a computation that is local along every
     dim its logical axes shard (a scan over the sequence, elementwise in
@@ -433,3 +460,42 @@ def gather_last(x, index):
                              run_check=False, shape=torch.Size(shape),
                              stride=contiguous_strides(shape))
     return _redistribute(r, out, ip)
+
+
+def logsumexp_last(x):
+    """``torch.logsumexp(x, dim=-1)``.
+
+    Under active rules with x a DTensor sharded along its last dim (the
+    vocab of a logits row), each rank works on its own slice: the ranks
+    that split the row agree on its max by one all-reduce of their local
+    maxes (no gradient: the result does not depend on it), each sums
+    exp(x - max) over its own columns, and one explicit all-reduce of the
+    sums (`_Reduce`) completes the row.  The gradient, softmax(x) times
+    the result's, stays on each rank's own columns.  DTensor's own
+    `logsumexp` over a sharded dim gathers the whole row on every rank.
+    Otherwise (a row not split, or x holding a partial sum)
+    ``torch.logsumexp`` as it is."""
+    r = current_rules()
+    last = x.ndim - 1
+    if (r is None or not _is_dtensor(x) or not any(p.is_shard(last) for p in x.placements)
+            or any(p.is_partial() for p in x.placements)):
+        return torch.logsumexp(x, dim=-1)
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    cut = tuple(i for i, p in enumerate(x.placements) if p.is_shard(last))
+    local = x.to_local()
+    m = local.detach().amax(-1)
+    for d in cut:
+        m = funcol.wait_tensor(funcol.all_reduce(m, "max", r.mesh.get_group(d).group_name))
+    shape = tuple(x.shape[:-1])
+
+    def row(t, pl):
+        return DTensor.from_local(t, r.mesh, pl, run_check=False, shape=torch.Size(shape),
+                                  stride=contiguous_strides(shape))
+
+    s = torch.exp(local - m[..., None]).sum(-1)
+    s = _Reduce.apply(row(s, [Partial() if i in cut else p for i, p in enumerate(x.placements)]),
+                      r, cut)
+    return torch.log(s) + row(m, [Replicate() if i in cut else p
+                                  for i, p in enumerate(x.placements)])

@@ -106,10 +106,13 @@ def _online_rows(q_band, k_band, v_band, scale, kv_block, q_start, k_start):
     den = torch.zeros((B, H, Sr), device=q_band.device)
     acc = torch.zeros((B, H, Sr, v_band.shape[-1]), device=q_band.device)
     rows = q_start + torch.arange(Sr, device=q_band.device)
+    # the kv blocks as one split: its gradient is one `cat` of the blocks'
+    # gradients, where a slice per block gives each a zero-padded gradient of
+    # the whole band, summed
+    kbs, vbs = kt.split(kv_block, dim=2), vt.split(kv_block, dim=2)
     for j in range(nk):
-        blk = slice(j * kv_block, (j + 1) * kv_block)
         cols = k_start + j * kv_block + torch.arange(kv_block, device=q_band.device)
-        s = torch.matmul(qt, kt[:, :, blk].transpose(-1, -2)) * scale
+        s = torch.matmul(qt, kbs[j].transpose(-1, -2)) * scale
         s = torch.where(cols[None, None, None, :] <= rows[None, None, :, None],
                         s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
@@ -117,7 +120,7 @@ def _online_rows(q_band, k_band, v_band, scale, kv_block, q_start, k_start):
         corr = torch.exp(m - m_new)
         den = den * corr + p.sum(dim=-1)
         acc = acc * corr[..., None] + torch.matmul(
-            p.to(vt.dtype).float(), vt[:, :, blk].float())
+            p.to(vt.dtype).float(), vbs[j].float())
         m = m_new
     o = acc / torch.clamp(den[..., None], min=1e-30)
     return o.transpose(1, 2).to(q_band.dtype)                 # (B,Sr,H,Dv)

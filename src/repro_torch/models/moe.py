@@ -19,7 +19,9 @@ batched GEMMs with no permuting copy; it holds the same rows.
 
 Under the dry run's rules the slot count, the dispatch and the combine run
 on each rank's own batch rows (`per_shard`; capacity is per sequence
-group, so no rank needs another's), as the reference's per-row vmap does.
+group, so no rank needs another's), as the reference's per-row vmap does,
+and the router's top-k and its renormalization run on each rank's own rows
+(`per_row`), forward and backward.
 The reference's two sharding annotations of the buffer sit at the same
 points (`EXPERT_ROWS`), its dims in this layout's order: the experts dim
 takes the data axis (expert-parallel, reached by an all-to-all) where it
@@ -35,7 +37,7 @@ import math
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import active_rules, add_partial, per_shard
+from repro_torch.distributed.sharding import active_rules, add_partial, per_row, per_shard
 from repro_torch.models import layers as L
 from repro_torch.models.params import ParamDesc, axis_size, placements
 
@@ -77,9 +79,15 @@ def route(cfg: ModelConfig, p, h):
     (B, t, K)."""
     logits = torch.matmul(h.float(), p["router"].float())
     probs = torch.softmax(logits, dim=-1)
-    gate_w, gate_idx = torch.topk(probs, cfg.moe.top_k, dim=-1)
-    gate_w = gate_w / torch.clamp(gate_w.sum(-1, keepdim=True), min=1e-9)
+    gate_w, gate_idx = per_row(functools.partial(_top_k, k=cfg.moe.top_k), probs)
     return probs, gate_w, gate_idx
+
+
+def _top_k(probs, k: int):
+    """Each row's k largest probabilities, descending, renormalized by
+    their sum, and their experts."""
+    gate_w, gate_idx = torch.topk(probs, k, dim=-1)
+    return gate_w / torch.clamp(gate_w.sum(-1, keepdim=True), min=1e-9), gate_idx
 
 
 def slots(gate_idx, n_experts: int, c: int):

@@ -27,7 +27,8 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import add_partial, add_whole, constrain, gather_last
+from repro_torch.distributed.sharding import (add_partial, add_whole, constrain, gather_last,
+                                              logsumexp_last)
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
@@ -169,16 +170,19 @@ def _remat(cfg: ModelConfig, fn):
     "nothing_saveable" saves only the inputs and recomputes the body in the
     backward; "dots_with_no_batch_dims" also saves the outputs of the 2-D
     matrix products (the projections), as the reference's JAX policy of that
-    name does, and recomputes the rest (norms, casts, attention scores)."""
+    name does, and recomputes the rest (norms, casts, attention scores).
+    No layer draws random numbers, so no RNG state is saved for the
+    recompute."""
     if cfg.remat == "none":
         return fn
     if cfg.remat == "nothing_saveable":
-        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False,
+                                 preserve_rng_state=False)
     if cfg.remat == "dots_with_no_batch_dims":
         ctx = functools.partial(ckpt.create_selective_checkpoint_contexts,
                                 _save_2d_products)
         return functools.partial(ckpt.checkpoint, fn, use_reentrant=False,
-                                 context_fn=ctx)
+                                 preserve_rng_state=False, context_fn=ctx)
     raise ValueError(f"unknown remat policy {cfg.remat!r}")
 
 
@@ -300,7 +304,10 @@ def chunked_ce_loss(cfg: ModelConfig, params, x, labels):
     to `cfg.logits_dtype`, the padded vocab masked to -1e30 in that dtype,
     then widened to f32 for the log-sum-exp, and the label's log-prob by
     gather (the reference's one-hot sum picks the same number).  The sum
-    over chunks is divided by B x S."""
+    over chunks is divided by B x S (no RNG state is saved: the chunk
+    draws no random numbers).  Under the dry run's rules the
+    log-sum-exp and the pick run on each rank's own vocab columns, as the
+    reference's XLA keeps them: no chunk's logits are gathered."""
     B, S, _ = x.shape
     table = L.unembed_table(cfg, params)
     V, Vp = cfg.vocab, cfg.vocab_padded
@@ -315,14 +322,14 @@ def chunked_ce_loss(cfg: ModelConfig, params, x, labels):
             logits = torch.where(torch.arange(Vp, device=x.device) < V, logits,
                                  torch.tensor(A.NEG_INF, dtype=ldt, device=x.device))
         logits = logits.float()
-        lse = torch.logsumexp(logits, dim=-1)
+        lse = logsumexp_last(logits)
         ll = gather_last(logits, y_c[..., None].long())[..., 0]
         return (lse - ll).sum()
 
     # under the dry run's rules each chunk's sum is a partial sum over the
     # rows' shards: the chunks are summed as one, reduced once
     return add_whole(*(ckpt.checkpoint(chunk_fn, x[:, c0:c0 + ch], labels[:, c0:c0 + ch],
-                                       use_reentrant=False)
+                                       use_reentrant=False, preserve_rng_state=False)
                        for c0 in range(0, S, ch))) / (B * S)
 
 

@@ -35,18 +35,28 @@ the backward):
 
 - forward: each norm (two a layer and the final one) gathers the sequence,
   each block output and the embedding's sum are reduce-scattered onto it;
-  each loss chunk gathers its logits along the vocab and all-reduces its
-  label pick (`sharding.gather_last`); the chunks' sums, partial over the
-  batch's shards, are summed as one and reduced once, over "data" (one
-  rank here: nothing moves);
+  each loss chunk keeps its logits vocab-sharded: its log-sum-exp
+  all-reduces the rows' maxes and then their sums of exponentials
+  (`sharding.logsumexp_last`), and its label pick is all-reduced
+  (`sharding.gather_last`); the chunks' sums, partial over the batch's
+  shards, are summed as one and reduced once, over "data" (one rank here:
+  nothing moves);
 - recompute: each layer's norms gather again and its first block output is
   reduce-scattered again (the last one is not needed: checkpointing stops
-  there), each loss chunk's logits are gathered again;
+  there), each loss chunk's two log-sum-exp all-reduces run again (its
+  label pick is not needed: the recompute stops before it);
 - backward: each gather's gradient is reduce-scattered, each
   reduce-scatter's gathered;
 - optimizer: each gradient laid out as its optimizer state; the norm
   scales' gradients, partial sums over the sequence's shards, all-reduced
   (one a stacked leaf); the global norm's sum all-reduced once.
+
+A MoE train step (reduced granite-moe-3b-a800m on 1 x 4 and 2 x 2): the
+slot count, the dispatch and the combine run on each rank's batch rows
+(`per_shard`) and the router's top-k weights are renormalized on each
+rank's own rows (`sharding.per_row`), so the routing's backward sends
+nothing of its own on any torch version; the counts are written out
+beside `MOE_TRAIN`.
 """
 import dataclasses
 
@@ -73,10 +83,10 @@ def shapes(monkeypatch):
     return cells
 
 
-def counts(cfg, arch: str, shape: str) -> dict:
-    """Collectives by kind of one step of `cfg` on a 1 x 4 fake world."""
-    with fake_world(4):
-        call, ctx = _cell(cfg, shape, (1, 4), arch=arch)
+def counts(cfg, arch: str, shape: str, mesh=(1, 4)) -> dict:
+    """Collectives by kind of one step of `cfg` on a fake world of `mesh`."""
+    with fake_world(mesh[0] * mesh[1]):
+        call, ctx = _cell(cfg, shape, mesh, arch=arch)
         coll, _ = _run(call, ctx, perf_debug.attribute)
     out: dict = {}
     for r in coll:
@@ -112,9 +122,10 @@ def train_counts(cfg, seq: int) -> dict:
     scale_leaves = sum(2 * len(pattern) for pattern, _ in cfg.blocks) + 1
     chunks = seq // min(cfg.loss_chunk, seq)
     norms, outs = 2 * layers + 1, 2 * layers
-    return {"all-gather": norms + 2 * layers + outs + 1 + 2 * chunks,
+    return {"all-gather": norms + 2 * layers + outs + 1,
             "reduce-scatter": outs + 1 + layers + norms,
-            "all-reduce": chunks + scale_leaves + 1}
+            # a loss chunk: max, sum and pick, then max and sum recomputed
+            "all-reduce": 3 * chunks + 2 * chunks + scale_leaves + 1}
 
 
 @pytest.mark.parametrize("reps,chunk", [(1, 64), (2, 32)])
@@ -169,3 +180,58 @@ def test_add_partial_refuses_a_shard_beside_a_partial_sum():
                                  run_check=False)
         with use_axis_rules(AxisRules({}, mesh)), pytest.raises(ValueError, match="lay the term out"):
             add_partial(part, cut)
+
+
+# reduced granite-moe-3b-a800m (one attention + MoE layer, 8 experts, the
+# 64-token loss in one chunk), by kind, on 1 x 4 and on 2 x 2:
+MOE_TRAIN = {
+    (1, 4): {
+        # the two norms and the final one gather the sequence (3), two of
+        # them again in the recompute (2); the backward gathers the
+        # attention output's and the embedding's reduce-scattered
+        # gradients (2 + 1)
+        "all-gather": 3 + 2 + 2 + 1,
+        # the attention output and the embedding's sum onto the sequence
+        # (1 + 1), the attention output again in the recompute (1), the
+        # gradients of the attention's and the final norm's gathers (2);
+        # the MoE norm's output is read whole on each rank (`per_shard`),
+        # its gradient comes back whole
+        "reduce-scatter": 1 + 1 + 1 + 2,
+        # the expert buffer's sum over its sharded FFN width (forward,
+        # recompute, backward: 3), the three norm scales' gradients (3),
+        # the loss chunk's max, sum and pick and again its max and sum
+        # (5), the global norm (1); the router's product and its top-k
+        # weights' renormalization send nothing
+        "all-reduce": 3 + 3 + 5 + 1,
+    },
+    (2, 2): {
+        # as on 1 x 4, and the router (its experts dim on "data") gathered
+        # for its product in the forward, the recompute and the backward
+        # (3), and the 8 parameters sharded along "data" gathered after
+        # the update (8)
+        "all-gather": 3 + 2 + 2 + 1 + 3 + 8,
+        # as on 1 x 4, and the 9 gradients laid out as their optimizer
+        # state (9)
+        "reduce-scatter": 1 + 1 + 1 + 2 + 9,
+        # as on 1 x 4, and the router's logits, a partial sum, reduced at
+        # the softmax and again in the recompute (2), the chunks' sum and
+        # the loss's add over "data" (1 + 1), the global norm over the
+        # second mesh dim (1)
+        "all-reduce": 3 + 3 + 5 + 1 + 2 + 2 + 1,
+        # the buffer to the experts and back, in the forward, the
+        # recompute and the backward (6), and the MoE norm's gradient
+        # onto the sequence's shards (1)
+        "all-to-all": 3 + 3 + 1,
+    },
+}
+
+
+@pytest.mark.parametrize("mesh", list(MOE_TRAIN), ids=lambda m: "x".join(map(str, m)))
+def test_moe_train_step_collectives(mesh, shapes):
+    """Reduced granite-moe-3b-a800m's train step: `route` renormalizes its
+    top-k weights on each rank's own rows (`sharding.per_row`), so that
+    step's backward sends nothing whatever DTensor's rules for a row's
+    division by its sum are (torch 2.11 all-gathered there)."""
+    cfg = treg.reduced(treg.get_config("granite-moe-3b-a800m"))
+    assert cfg.moe.n_experts == 8 and cfg.loss_chunk >= 64
+    assert counts(cfg, "granite-moe-3b-a800m", "s_train", mesh) == MOE_TRAIN[mesh]

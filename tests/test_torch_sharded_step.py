@@ -38,15 +38,24 @@ a ("data", "model") mesh, and compares the gathered results at f32 1e-5:
   the absorbed decode over the T-sharded latent cache (split-T);
 - qwen2 with 8 q heads and 2 kv heads on 1 x 4 (the q heads divide
   "model"): one decode step, each block output reduced at the residual
-  add.
+  add;
+- qwen2 with a vocab of 500, padded to 512, on 1 x 4 and on 2 x 2: a
+  train step whose loss runs in two chunks, each chunk's log-sum-exp and
+  label pick on each rank's own vocab columns, the padded columns on the
+  last "model" shard;
+- reduced granite-moe-3b-a800m (8 experts) and deepseek-v2-236b on 2 x 2:
+  a train step, the router on each rank's own batch rows; deepseek's
+  shared experts pass their gradient of the norm's output back beside the
+  routed experts'.
 
 The same world holds `op_cost`'s live-byte count (the dry run's temp
-bytes) against real per-rank allocations: each rank runs four sharded
+bytes) against real per-rank allocations: each rank runs five sharded
 steps on real DTensors under the CPU allocator's profiler (reduced
 deepseek-v2-236b's train step, MLA and MoE in `per_shard`; qwen2's train
-step, DTensor ops and row-split attention; falcon-mamba's prefill, its
-scan in `per_shard`; granite's prefill on 2 x 2 with 8 experts, whose
-all-to-all gloo runs as an all-gather and a chunk), the least peak of
+step, DTensor ops and row-split attention, and with a 500-token vocab, the
+loss in two vocab-sharded chunks; falcon-mamba's prefill, its scan in
+`per_shard`; granite's prefill on 2 x 2 with 8 experts, whose all-to-all
+gloo runs as an all-gather and a chunk), the least peak of
 three runs after a first one; a second launch of 4 processes, each a rank
 of a fake world, counts the same steps on meta DTensors of the same
 layouts, as gloo runs them (without `op_cost.alltoall_as_on_a_card`); the
@@ -78,8 +87,10 @@ CASES = ["qwen2_prefill", "qwen2_train", "qwen2_decode", "gemma3_prefill", "gemm
          "stablelm_prefill", "stablelm_train", "stablelm_decode", "stablelm_prefill_30",
          "gemma3_kv2_prefill", "gemma3_kv2_decode", "rgemma_prefill", "rgemma_decode",
          "rgemma_train", "deepseek_prefill", "deepseek_train", "deepseek_decode",
-         "qwen2_h8_decode", "qwen2_step"]
-MEMORY_CASES = ["deepseek_train", "qwen2_train", "mamba_prefill", "granite_e8_prefill"]
+         "qwen2_h8_decode", "qwen2_step", "qwen2_v500_train", "qwen2_v500_train_2x2",
+         "granite_e8_train", "deepseek_train_2x2"]
+MEMORY_CASES = ["deepseek_train", "qwen2_train", "mamba_prefill", "granite_e8_prefill",
+                "qwen2_v500_train"]
 
 _COMMON = r'''
 import dataclasses, json, pickle, sys, time, traceback
@@ -267,6 +278,9 @@ gemma3_kv2 = windows(dataclasses.replace(
 rgemma = windows(cfg_of("recurrentgemma-9b"), 16)
 deepseek = cfg_of("deepseek-v2-236b")
 qwen2_h8 = cfg_of("qwen2-1.5b", n_heads=8, n_kv_heads=2)
+# 500 tokens padded to 512: the last "model" shard of the vocab holds the
+# 12 padded columns; the 32-token loss in two chunks
+qwen2_v500 = dataclasses.replace(qwen2, vocab=500, loss_chunk=16)
 CASES = {
     "qwen2_prefill": lambda: prefill_case(qwen2, (1, 4), 2, 32),
     "qwen2_train": lambda: train_case(qwen2, (1, 4), 2, 32),
@@ -299,6 +313,10 @@ CASES = {
     "deepseek_decode": lambda: decode_case(deepseek, (1, 4), 2, 32, 40),
     "qwen2_h8_decode": lambda: decode_case(qwen2_h8, (1, 4), 2, 32, 40),
     "qwen2_step": lambda: step_case(qwen2, (2, 2), 4, 32),
+    "qwen2_v500_train": lambda: train_case(qwen2_v500, (1, 4), 2, 32),
+    "qwen2_v500_train_2x2": lambda: train_case(qwen2_v500, (2, 2), 2, 32),
+    "granite_e8_train": lambda: train_case(granite, (2, 2), 4, 16),
+    "deepseek_train_2x2": lambda: train_case(deepseek, (2, 2), 2, 32),
 }
 # memory: each rank's allocator peak over a sharded step on CPU DTensors in
 # the gloo world, and op_cost's count of the same step on meta DTensors of the
@@ -374,6 +392,7 @@ MEMORY = {
     "qwen2_train": (qwen2, (1, 4), "train_4k", 2, 32),
     "mamba_prefill": (mamba, (1, 4), "prefill_32k", 2, 32),
     "granite_e8_prefill": (granite, (2, 2), "prefill_32k", 4, 16),
+    "qwen2_v500_train": (qwen2_v500, (1, 4), "train_4k", 2, 32),
 }
 '''
 _WORLD = _COMMON + r'''
