@@ -94,7 +94,12 @@ its last line):
      its loss equal to the plain step's at 1e-4; the batch-2 step counted
      only, which must exceed the card's memory less the parameters (the
      card runs out there); each number logged with the card's name and
-     power limit; no kernel launched;
+     power limit; then falcon-mamba-7b cut to 2 layers at full width, one
+     plain forward and backward at 1 x 4096 (its chunked scan under the
+     checkpoint's recompute), its peak held against the count in the same
+     band and below 16 whole-sequence (1, 4096, 8192, 16) f32 tensors
+     (34.36 GB: what a Hillis-Steele scan of the chunks saves alone, where
+     the reference's associative scan saves ~8); no kernel launched;
   4e. compression: gradient compression with error feedback on the card,
      at full-width qwen2-1.5b's gradient shapes (f32, one tensor per
      parameter leaf, 1.544 B elements from the generator; the largest
@@ -239,6 +244,11 @@ FIT_TOL = dict(rtol=1e-4, atol=1e-5)
 # the count's batch-2 step is only counted (it does not fit the card)
 MEMORY_ARCH, MEMORY_BATCH, MEMORY_BATCH_OOM = "deepseek-v2-236b", 1, 2
 MEMORY_BAND = (0.90, 1.10)     # op_cost's live bytes over the allocator's peak
+# falcon-mamba-7b cut to 2 layers at full width, the same step: its peak,
+# above the parameters, must stay below 16 whole-sequence (B, S, d_inner,
+# d_state) f32 tensors, what a Hillis-Steele scan of the chunks saves for
+# backward alone (the associative scan the model runs saves ~8)
+SCAN_MEMORY_ARCH, SCAN_MEMORY_LAYERS, SCAN_MEMORY_UNITS = "falcon-mamba-7b", 2, 16
 # the tooling phases: compression at qwen2-1.5b's gradient shapes, 3 steps a scheme
 COMPRESSION_ARCH, COMPRESSION_STEPS, TOPK_FRAC = "qwen2-1.5b", 3, 0.01
 # the dry run's cells: full width on the 16 x 16 fake world, one process each
@@ -1254,7 +1264,10 @@ def phase_train_memory(seed):
     step on DTensors over a one-rank NCCL mesh under the dry run's axis
     rules (counted on meta DTensors over a fake one-rank world), each within
     `MEMORY_BAND`.  The batch-2 step is counted only, beside the card's
-    memory less the parameters."""
+    memory less the parameters.  Then falcon-mamba-7b cut to
+    `SCAN_MEMORY_LAYERS` layers at full width, the plain step, within the
+    same band and below `SCAN_MEMORY_UNITS` whole sequences of the scan's
+    (B, S, d_inner, d_state) f32 tensors."""
     from torch.distributed.tensor import DTensor
     from torch.distributed.tensor.experimental import implicit_replication
 
@@ -1276,10 +1289,14 @@ def phase_train_memory(seed):
     tokens = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (MEMORY_BATCH, TRAIN_SEQ))
                                   .astype(np.int32)) for k in ("tokens", "labels")}
 
-    def step(params, batch):
-        loss, _ = T.forward_train(cfg, params, batch)
-        loss.backward()
-        return loss
+    def train_step(cfg):
+        def step(params, batch):
+            loss, _ = T.forward_train(cfg, params, batch)
+            loss.backward()
+            return loss
+        return step
+
+    step = train_step(cfg)
 
     def grads_on(params):
         for t in tree_leaves(params):
@@ -1349,9 +1366,10 @@ def phase_train_memory(seed):
     batch = {k: v.to("cuda") for k, v in tokens.items()}
     measured, param_bytes, step_s, loss = measure(lambda: step(params, batch), params)
     total = torch.cuda.get_device_properties(0).total_memory
-    rows = [dict(path="plain", measured_peak_bytes=measured, counted_peak_bytes=counted,
-                 counted_over_measured=counted / measured, loss=float(loss.detach()),
-                 step_s=step_s)]
+    rows = [dict(arch=cfg.name, layers="1 dense + 1 MoE", params=cfg.param_count(),
+                 param_bytes=param_bytes, path="plain", measured_peak_bytes=measured,
+                 counted_peak_bytes=counted, counted_over_measured=counted / measured,
+                 loss=float(loss.detach()), step_s=step_s)]
     del params, loss
     free_card()
 
@@ -1365,7 +1383,9 @@ def phase_train_memory(seed):
         dstep(dparams, dbatch, mesh, rules)      # DTensor's first sight of each op
         measured_dt, _, step_dt_s, loss_dt = measure(lambda: dstep(dparams, dbatch, mesh, rules),
                                                       dparams)
-        rows.append(dict(path="dtensor, one-rank NCCL mesh (1, 1), train_4k's axis rules",
+        rows.append(dict(arch=cfg.name, layers="1 dense + 1 MoE", params=cfg.param_count(),
+                         param_bytes=param_bytes,
+                         path="dtensor, one-rank NCCL mesh (1, 1), train_4k's axis rules",
                          measured_peak_bytes=measured_dt, counted_peak_bytes=counted_dt,
                          counted_over_measured=counted_dt / measured_dt,
                          loss=float(loss_dt.full_tensor().detach()), step_s=step_dt_s))
@@ -1375,10 +1395,29 @@ def phase_train_memory(seed):
         del dparams, dbatch, loss_dt
     del batch
     free_card()
+
+    # falcon-mamba-7b: the plain chunked scan's saved tensors set the peak
+    scfg = registry.cut_depth(registry.get_config(SCAN_MEMORY_ARCH), SCAN_MEMORY_LAYERS)
+    sdescs, sstep = T.build_descriptors(scfg), train_step(scfg)
+    scounted = op_cost.analyze(sstep, grads_on(tree_map_desc(meta, sdescs)),
+                               meta_batch(MEMORY_BATCH)).peak_bytes
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = grads_on(init_tree(sdescs, gen, "cuda"))
+    batch = {k: torch.from_numpy(rng.integers(0, scfg.vocab, (MEMORY_BATCH, TRAIN_SEQ))
+                                 .astype(np.int32)).to("cuda") for k in ("tokens", "labels")}
+    smeasured, sparam_bytes, sstep_s, sloss = measure(lambda: sstep(params, batch), params)
+    scan_limit = (SCAN_MEMORY_UNITS * MEMORY_BATCH * TRAIN_SEQ * scfg.ssm.expand * scfg.d_model
+                  * scfg.ssm.d_state * 4)
+    rows.append(dict(arch=scfg.name, layers=f"{SCAN_MEMORY_LAYERS} mamba",
+                     params=scfg.param_count(), param_bytes=sparam_bytes, path="plain",
+                     measured_peak_bytes=smeasured, counted_peak_bytes=scounted,
+                     counted_over_measured=scounted / smeasured, loss=float(sloss.detach()),
+                     step_s=sstep_s, scan_limit_bytes=scan_limit))
+    del params, batch, sloss
+    free_card()
     for row in rows:
-        log("train_memory", arch=cfg.name, layers="1 dense + 1 MoE", batch=MEMORY_BATCH,
-            seq_len=TRAIN_SEQ, params=cfg.param_count(), param_bytes=param_bytes, **row,
-            band=MEMORY_BAND, card=card)
+        log("train_memory", batch=MEMORY_BATCH, seq_len=TRAIN_SEQ, **row, band=MEMORY_BAND,
+            card=card)
     log("train_memory_oom", arch=cfg.name, batch=MEMORY_BATCH_OOM, seq_len=TRAIN_SEQ,
         counted_peak_bytes=counted_oom, card_bytes=total, param_bytes=param_bytes,
         card_less_params=total - param_bytes, predicts_oom=counted_oom > total - param_bytes,
@@ -1387,6 +1426,9 @@ def phase_train_memory(seed):
         if not MEMORY_BAND[0] <= row["counted_over_measured"] <= MEMORY_BAND[1]:
             raise AssertionError(f"train_memory {row['path']}: counted / measured "
                                  f"{row['counted_over_measured']:.4f} outside {MEMORY_BAND}")
+    if not (math.isfinite(rows[-1]["loss"]) and smeasured < scan_limit):
+        raise AssertionError(f"train_memory {scfg.name}: loss {rows[-1]['loss']}, peak "
+                             f"{smeasured} bytes above the parameters, not below {scan_limit}")
     if counted_oom <= total - param_bytes:
         raise AssertionError(f"train_memory: the batch-{MEMORY_BATCH_OOM} count "
                              f"{counted_oom} fits the card's {total - param_bytes} bytes "

@@ -6,10 +6,10 @@ Block: x -> (gate branch: GeLU(x W_gate)) * RG-LRU(conv1d(x W_in)) -> W_out.
 RG-LRU: r_t = sigmoid(u W_a), i_t = sigmoid(u W_x), a_t = a^(c r_t) with
         a = sigmoid(Lambda), h_t = a_t h_{t-1} + sqrt(1 - a_t^2) (i_t u_t).
 
-The plain path evaluates the recurrence in time chunks with a log-depth scan
-inside each, as the Mamba block does.  With `cfg.use_pallas`, prefill forms
-a_t and b_t outside the kernel exactly as the reference does and runs the
-recurrence through the hand-written kernel
+The plain path evaluates the recurrence in time chunks with the reference's
+associative scan inside each (`ssm.linear_scan`), as the Mamba block does.
+With `cfg.use_pallas`, prefill forms a_t and b_t outside the kernel exactly
+as the reference does and runs the recurrence through the hand-written kernel
 (`repro_torch.kernels.ops.rglru_scan`); decode is one plain step.
 """
 from __future__ import annotations

@@ -3,10 +3,12 @@
 Plain PyTorch version of the JAX package's `repro/models/ssm.py`.  The
 selective scan h_t = exp(dt_t A) h_{t-1} + dt_t B_t u_t is evaluated as a
 chunked linear recurrence, as there: a loop over time chunks carrying the
-state, with a log-depth scan inside each chunk, so that the (chunk, D, N)
-intermediate is the only expanded tensor.  With `cfg.use_pallas`, prefill
-goes through the hand-written kernel (`repro_torch.kernels.ops.mamba_scan`)
-instead; decode is one plain step, as in the reference.
+state, with the reference's work-efficient associative scan inside each
+chunk (the odd/even recursion of `jax.lax.associative_scan`, `linear_scan`),
+so that the (chunk, D, N) intermediates are the only expanded tensors.  With
+`cfg.use_pallas`, prefill goes through the hand-written kernel
+(`repro_torch.kernels.ops.mamba_scan`) instead; decode is one plain step, as
+in the reference.
 """
 from __future__ import annotations
 
@@ -76,17 +78,30 @@ def conv_step(tail, x, w, b):
 
 
 def linear_scan(a, b):
-    """Inclusive scan of h_t = a_t h_{t-1} + b_t over dim 1 from h = 0, in
-    log depth (each step combines elements `off` apart).
+    """Inclusive scan of h_t = a_t h_{t-1} + b_t over dim 1 from h = 0, by
+    the reference's recursion (`jax.lax.associative_scan` with its
+    `combine((a1, b1), (a2, b2)) = (a1 a2, a2 b1 + b2)`), the same f32
+    operations in the same order: combine adjacent pairs, scan the half
+    (the odd elements' results), combine each odd result with the next
+    even element, and interleave.  log2(n) levels of ~n / 2^level combines
+    each; each level writes its result into one new tensor per output.
 
     Returns (prod of a up to t, h_t)."""
-    n, off = a.shape[1], 1
-    while off < n:
-        a_cur, b_cur = a[:, off:], b[:, off:]
-        b = torch.cat([b[:, :off], a_cur * b[:, :n - off] + b_cur], dim=1)
-        a = torch.cat([a[:, :off], a_cur * a[:, :n - off]], dim=1)
-        off *= 2
-    return a, b
+    n = a.shape[1]
+    if n < 2:
+        return a, b
+    a_ev, b_ev, a_od, b_od = a[:, 0:n - 1:2], b[:, 0:n - 1:2], a[:, 1::2], b[:, 1::2]
+    ra, rb = linear_scan(a_ev * a_od, a_od * b_ev + b_od)         # the odd elements
+    pa, pb = (ra[:, :-1], rb[:, :-1]) if n % 2 == 0 else (ra, rb)
+    xa, xb = a[:, 2::2], b[:, 2::2]
+    outs = []
+    for x, odd, even in ((a, ra, pa * xa), (b, rb, xa * pb + xb)):
+        out = x.new_empty(x.shape)
+        out[:, :1] = x[:, :1]
+        out[:, 2::2] = even
+        out[:, 1::2] = odd
+        outs.append(out)
+    return outs[0], outs[1]
 
 
 def n_chunks(S: int, chunk: int) -> int:

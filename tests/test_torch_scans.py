@@ -42,7 +42,7 @@ def jref():
     `cuda` cases of this file also run where JAX is not installed)."""
     jax = pytest.importorskip("jax")
     from repro.kernels import ops, ref
-    return types.SimpleNamespace(jnp=jax.numpy, ops=ops, ref=ref)
+    return types.SimpleNamespace(jnp=jax.numpy, lax=jax.lax, ops=ops, ref=ref)
 
 
 @pytest.fixture
@@ -78,6 +78,77 @@ def _np(t):
 
 
 # ---------------------------------------------------------------------------
+# the chunks' associative scan
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [1, 2, 3, 16, 83, 127, 128, 256])
+@pytest.mark.parametrize("kind", ["mamba", "rglru"])
+def test_linear_scan_is_the_reference_associative_scan(jref, n, kind):
+    """`linear_scan` runs `jax.lax.associative_scan`'s recursion with the
+    reference's `combine` (src/repro/models/ssm.py:86-91, rglru.py:74-79):
+    the same f32 operations in the same order, so the same bits, odd
+    lengths included.  XLA's CPU flushes subnormals to zero (a product of
+    256 factors in [0.5, 1) reaches them), so the port runs here with
+    torch's flush on as well."""
+    shape = (2, n, 6, 4) if kind == "mamba" else (2, n, 10)     # (B, n, D, N), (B, n, W)
+    rng = np.random.default_rng(n)
+    a = rng.uniform(0.5, 1.0, shape).astype(np.float32)
+    b = rng.standard_normal(shape, dtype=np.float32)
+
+    def combine(p, q):
+        a1, b1 = p
+        a2, b2 = q
+        return a1 * a2, a2 * b1 + b2
+
+    exp_a, exp_b = jref.lax.associative_scan(combine, (jref.jnp.asarray(a), jref.jnp.asarray(b)),
+                                             axis=1)
+    assert torch.set_flush_denormal(True)
+    try:
+        got_a, got_b = TS.linear_scan(_t(a), _t(b))
+    finally:
+        torch.set_flush_denormal(False)
+    np.testing.assert_array_equal(got_a.numpy(), np.asarray(exp_a))
+    np.testing.assert_array_equal(got_b.numpy(), np.asarray(exp_b))
+
+
+def _saved_bytes(fn):
+    """Bytes of the storages autograd saves while fn() runs, each once."""
+    saved = {}
+
+    def pack(t):
+        s = t.untyped_storage()
+        saved[s.data_ptr()] = s.nbytes()
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        fn()
+    return sum(saved.values())
+
+
+@pytest.mark.parametrize("scan,limit", [("selective_scan", 8.5), ("rglru_scan", 14.5)])
+def test_chunked_scan_saves_few_whole_sequences(scan, limit):
+    """What autograd keeps of the plain chunked scans, in whole-sequence
+    f32 tensors ((B, S, D, N) for Mamba, (B, S, W) for RG-LRU), at the
+    models' chunks (128, 256): the recursion saves each level's operands,
+    ~2 sequences of a and of b over all levels, where a Hillis-Steele scan
+    kept every one of its log2(chunk) levels (16 and 24 units)."""
+    rng = np.random.default_rng(8)
+
+    def leaf(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).requires_grad_()
+
+    if scan == "selective_scan":
+        B, S, D, N = 2, 512, 64, 16
+        args = (leaf(B, S, D), leaf(B, S, D), leaf(D, N), leaf(B, S, N), leaf(B, S, N))
+        units = _saved_bytes(lambda: TS.selective_scan(*args, chunk=128)) / (B * S * D * N * 4)
+    else:
+        B, S, W = 2, 512, 128
+        args = (leaf(B, S, W), leaf(B, S, W), leaf(B, S, W), leaf(W))
+        units = _saved_bytes(lambda: TR.rglru_scan(*args, c=8.0, chunk=256)) / (B * S * W * 4)
+    assert units <= limit, units
+
+
+# ---------------------------------------------------------------------------
 # RG-LRU linear recurrence
 # ---------------------------------------------------------------------------
 
@@ -104,7 +175,7 @@ def test_rglru_scan_matches_reference(jref, shape, tiles, dtype):
 
 @pytest.mark.parametrize("chunk", [8, 16, 32, 64, 48])
 def test_rglru_chunked_plain_path_matches_oracle(jref, chunk):
-    """The model's chunked plain path (log-depth scan inside each chunk) is
+    """The model's chunked plain path (the associative scan inside each chunk) is
     invariant to the chunk and equals the step-by-step recurrence, as
     tests/test_kernels.py::test_rglru_chunking_property holds the kernel."""
     rng = np.random.default_rng(7)
