@@ -244,6 +244,10 @@ FIT_TOL = dict(rtol=1e-4, atol=1e-5)
 # the count's batch-2 step is only counted (it does not fit the card)
 MEMORY_ARCH, MEMORY_BATCH, MEMORY_BATCH_OOM = "deepseek-v2-236b", 1, 2
 MEMORY_BAND = (0.90, 1.10)     # op_cost's live bytes over the allocator's peak
+# DTensor's all-to-all (`_dtensor::shard_dim_alltoall`) on the same one-rank
+# NCCL group: a 1 GiB bf16 input, (gather dim, shard dim) with the shard dim
+# outermost and not; its peak held against the count in the same band
+ALLTOALL_SHAPE, ALLTOALL_DIMS = (8, 4096, 16384), ((1, 0), (0, 1))
 # falcon-mamba-7b cut to 2 layers at full width, the same step: its peak,
 # above the parameters, must stay below 16 whole-sequence (B, S, d_inner,
 # d_state) f32 tensors, what a Hillis-Steele scan of the chunks saves for
@@ -1264,7 +1268,11 @@ def phase_train_memory(seed):
     step on DTensors over a one-rank NCCL mesh under the dry run's axis
     rules (counted on meta DTensors over a fake one-rank world), each within
     `MEMORY_BAND`.  The batch-2 step is counted only, beside the card's
-    memory less the parameters.  Then falcon-mamba-7b cut to
+    memory less the parameters.  On the same NCCL group, DTensor's
+    all-to-all op on a 1 GiB bf16 tensor, each of `ALLTOALL_DIMS`: its peak
+    above what was allocated before, against the count of the same call
+    on meta tensors over a fake one-rank world, same band.  Then
+    falcon-mamba-7b cut to
     `SCAN_MEMORY_LAYERS` layers at full width, the plain step, within the
     same band and below `SCAN_MEMORY_UNITS` whole sequences of the scan's
     (B, S, d_inner, d_state) f32 tensors."""
@@ -1333,6 +1341,10 @@ def phase_train_memory(seed):
         with implicit_replication(), use_axis_rules(AxisRules(rules, mesh)):
             return step(params, batch)
 
+    def alltoall(gather, shard):
+        group = torch.distributed.group.WORLD.group_name
+        return lambda x: torch.ops._dtensor.shard_dim_alltoall(x, gather, shard, group)
+
     # the counts, on meta tensors
     counted = op_cost.analyze(step, grads_on(tree_map_desc(meta, descs)),
                               meta_batch(MEMORY_BATCH)).peak_bytes
@@ -1348,6 +1360,9 @@ def phase_train_memory(seed):
         op_cost.analyze(dstep, mparams, mbatch, mesh, rules)
         counted_dt = op_cost.analyze(dstep, no_grads(mparams), mbatch, mesh, rules).peak_bytes
         del mparams, mbatch
+        counted_a2a = [op_cost.analyze(alltoall(*dims), torch.empty(
+            ALLTOALL_SHAPE, dtype=torch.bfloat16, device="meta")).peak_bytes
+            for dims in ALLTOALL_DIMS]
     finally:
         destroy_fake_world()
 
@@ -1393,6 +1408,24 @@ def phase_train_memory(seed):
             raise AssertionError(f"train_memory: the DTensor step's loss {rows[1]['loss']} "
                                  f"is not the plain step's {rows[0]['loss']}")
         del dparams, dbatch, loss_dt
+        free_card()
+        a2a_rows = []
+        for (gather, shard), counted_one in zip(ALLTOALL_DIMS, counted_a2a):
+            x = torch.empty(ALLTOALL_SHAPE, dtype=torch.bfloat16, device="cuda").normal_(
+                generator=gen)
+            kept = []
+            measured_one, _, op_s, _ = measure(
+                lambda: kept.append(alltoall(gather, shard)(x)), {})
+            if not torch.equal(kept[0], x):
+                raise AssertionError("train_memory: a one-rank all-to-all changed its input")
+            a2a_rows.append(dict(path=f"_dtensor.shard_dim_alltoall, gather dim {gather}, "
+                                      f"shard dim {shard}, one-rank NCCL group",
+                                 shape=ALLTOALL_SHAPE, dtype="bfloat16",
+                                 result_bytes=kept[0].numel() * kept[0].element_size(),
+                                 measured_peak_bytes=measured_one,
+                                 counted_peak_bytes=counted_one,
+                                 counted_over_measured=counted_one / measured_one, op_s=op_s))
+            del x, kept
     del batch
     free_card()
 
@@ -1418,11 +1451,13 @@ def phase_train_memory(seed):
     for row in rows:
         log("train_memory", batch=MEMORY_BATCH, seq_len=TRAIN_SEQ, **row, band=MEMORY_BAND,
             card=card)
+    for row in a2a_rows:
+        log("train_memory_alltoall", **row, band=MEMORY_BAND, card=card)
     log("train_memory_oom", arch=cfg.name, batch=MEMORY_BATCH_OOM, seq_len=TRAIN_SEQ,
         counted_peak_bytes=counted_oom, card_bytes=total, param_bytes=param_bytes,
         card_less_params=total - param_bytes, predicts_oom=counted_oom > total - param_bytes,
         card=card, seconds=time.perf_counter() - t0)
-    for row in rows:
+    for row in rows + a2a_rows:
         if not MEMORY_BAND[0] <= row["counted_over_measured"] <= MEMORY_BAND[1]:
             raise AssertionError(f"train_memory {row['path']}: counted / measured "
                                  f"{row['counted_over_measured']:.4f} outside {MEMORY_BAND}")

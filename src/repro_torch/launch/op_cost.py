@@ -35,12 +35,17 @@ The counter also keeps the peak of the bytes its ops' outputs hold alive
 the op that made it until the storage itself is freed, which is when its
 last holder lets go: a view outlives its base, and autograd keeps what it
 saves after the tensor the program held is gone.  An output on an input's
-storage (in place, `out=`) adds nothing; a functional collective's result
-counts once, though its meta kernel hands it back as a new tensor; and
-autograd's index backward, which a dispatch mode turns out of place, counts
-in place, as the program runs it.  Eager execution reuses no buffers
-the way XLA's allocator does, so this is the peak of what the program
-holds, not of a planned arena.
+storage (in place, `out=`) adds nothing; and autograd's index backward,
+which a dispatch mode turns out of place, counts in place, as the program
+runs it.  A collective's result counts at its own bytes, once, as a card's
+op returns it in a buffer of its own: a functional collective's meta kernel
+hands it back as a new tensor, and DTensor's all-to-all's fake kernel as a
+view of the n-fold `cat` of its input.  The all-to-all also holds, while it
+runs over n > 1 ranks, a buffer of the result's size for each copy torch's
+op makes (`_alltoall_scratch`), as the CPU allocator shows of that op on
+torch 2.11 and 2.13; they count towards the peak and die before it
+returns.  Eager execution reuses no buffers the way XLA's allocator does,
+so this is the peak of what the program holds, not of a planned arena.
 """
 from __future__ import annotations
 
@@ -165,6 +170,25 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+def _alltoall_scratch(args) -> int:
+    """Bytes DTensor's all-to-all (`_dtensor::shard_dim_alltoall`) holds
+    beside its result while it runs: over n > 1 ranks, torch's op sends a
+    copy of the input with the shard dim first, unless that is already the
+    input's layout, and receives the n chunks stacked along a new first
+    dim, which is the result unless the gather dim is another: then the
+    result is a copy of them.  Each copy is the result's size.  Over one
+    rank the op makes the result alone."""
+    x, gather_dim, shard_dim = args[:3]
+    n = _group_size(args)
+    if n == 1:
+        return 0
+    chunk = list(x.shape)
+    chunk[shard_dim] //= n
+    copies = ((not x.movedim(shard_dim, 0).is_contiguous())
+              + any(c != 1 for c in chunk[:gather_dim]))
+    return copies * _nbytes(x)
+
+
 class _OpCounter(TorchDispatchMode):
     """Adds each dispatched aten op's FLOPs and bytes, and each collective's
     wire bytes, to `cost`; keeps the peak of the bytes live in its ops'
@@ -182,18 +206,20 @@ class _OpCounter(TorchDispatchMode):
     def _free(self, key):
         self.live -= self._held.pop(key, 0)
 
-    def _hold(self, outs, ins):
-        """Count each new storage among `outs` until it is freed."""
+    def _hold(self, outs, ins, own=False, scratch=0):
+        """Count each new storage among `outs` until it is freed: at its
+        size, or with `own` (a collective's result) at the output's own
+        bytes; `scratch` more bytes live only inside the op, at its peak."""
         shared = {a.untyped_storage()._cdata for a in ins}
         for t in outs:
             s = t.untyped_storage()
             key = s._cdata
             if key in self._held or key in shared:
                 continue                      # in place or a view: no new buffer
-            self._held[key] = s.nbytes()
+            self._held[key] = _nbytes(t) if own else s.nbytes()
             self.live += self._held[key]
             weakref.finalize(s, self._free, key)
-        self.cost.peak_bytes = max(self.cost.peak_bytes, self.live)
+        self.cost.peak_bytes = max(self.cost.peak_bytes, self.live + scratch)
 
     def _pass_on(self, src, dst):
         """Move `src`'s count to `dst`'s storage: one buffer of the counted
@@ -245,7 +271,10 @@ class _OpCounter(TorchDispatchMode):
             # autograd's index backward writes into its zeros out of place
             # under any dispatch mode (this counter), in place without one
             self._pass_on(args[0], out)
-        self._hold(list(_tensors(out)), list(_tensors((args, kwargs))))
+        collective = func.overloadpacket in COLLECTIVES
+        scratch = (_alltoall_scratch(args)
+                   if func.overloadpacket is torch.ops._dtensor.shard_dim_alltoall else 0)
+        self._hold(list(_tensors(out)), list(_tensors((args, kwargs))), collective, scratch)
         return out
 
     def once_per_shape(self, fn, *args):
@@ -256,8 +285,12 @@ class _OpCounter(TorchDispatchMode):
         fn: outputs on one storage in fn's run share one storage of its size
         again, with their views' offsets and strides.  On tensors with data,
         where autograd records (a replay would leave no graph), or for a body
-        with collectives or an output on an input's storage, fn(*args).  The
-        dry run's counterpart of a scanned body traced once;
+        with collectives or an output on an input's storage, fn(*args): a
+        replay holds each output's whole storage, where a collective's
+        result counts at its own bytes (`_hold`); a collective that sends
+        no bytes runs over one rank, where its fake kernel's result is a
+        storage of its own size.  The dry run's counterpart of a scanned
+        body traced once;
         `distributed.sharding.per_shard` calls it on the current dispatch
         mode when that mode has it."""
         from torch.utils._python_dispatch import _disable_current_modes

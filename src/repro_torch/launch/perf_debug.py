@@ -99,22 +99,24 @@ class _Attributor(op_cost._OpCounter):
         g["bytes"] += one.bytes
         g["wire"] += one.coll_wire
 
-    def _hold(self, outs, ins):
+    def _hold(self, outs, ins, own=False, scratch=0):
         if self.peak_at is None:
-            return super()._hold(outs, ins)
+            return super()._hold(outs, ins, own, scratch)
         op, self._op = self._op or ("replayed", _call_site()), None
         new = [t.untyped_storage()._cdata for t in outs]
         new = [k for k in new if k not in self._held]
-        super()._hold(outs, ins)
+        super()._hold(outs, ins, own, scratch)
         for k in new:
             if k in self._held:
                 self.made[k] = op
-        if self.at_peak is None and self.live >= self.peak_at:
+        if self.at_peak is None and self.live + scratch >= self.peak_at:
             self.at_peak = {}
             for k, n in self._held.items():
                 g = self.at_peak.setdefault(self.made.get(k, ("?", "?")), [0, 0])
                 g[0] += n
                 g[1] += 1
+            if scratch:
+                self.at_peak[(f"{op[0]} scratch", op[1])] = [scratch, 1]
 
     def _free(self, key):
         super()._free(key)

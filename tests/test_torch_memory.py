@@ -17,6 +17,11 @@ the step (its arguments) count on neither side.
   scalar's own tensor) of the allocator; a reduce-scatter's result on a
   fake world, counted once; and `once_per_shape`'s replay of outputs that
   are views of one storage, equal to running the body each time.
+- DTensor's all-to-all: a Shard -> Shard step on fake worlds of 4 and 16
+  counts its result at its own bytes (the fake kernel returns a view of an
+  n-fold `cat`) and the one copy torch's op holds beside it while it runs;
+  torch's op itself, run in a 4-process gloo world (or over NCCL on 4
+  cards), peaks at what the count says for each layout of `ALLTOALL`.
 - Reduced qwen2-1.5b, deepseek-v2-236b (MLA and MoE), falcon-mamba-7b (its
   plain scan) and recurrentgemma-9b, batch 2 x 64 tokens: a train step
   (`forward_train` and `backward`, every floating parameter requiring
@@ -26,6 +31,8 @@ A CPU kernel's own scratch (`mm` on a broadcast operand copies it inside
 the kernel) is allocated where no dispatched op shows it, so the unit
 steps use no such operand.
 """
+import json
+
 import numpy as np
 import pytest
 
@@ -174,6 +181,132 @@ def test_collective_result_counts_once():
     finally:
         destroy_fake_world()
     assert c.peak_bytes == 2 * F32 // 4
+
+
+@pytest.mark.parametrize("n", [4, 16])
+@pytest.mark.parametrize("src,dst", [(1, 0), (0, 1)], ids=["alltoall_1_to_0", "alltoall_0_to_1"])
+def test_alltoall_result_counts_at_its_own_bytes(src, dst, n):
+    """DTensor's Shard(src) -> Shard(dst) step of a 4-D bf16 tensor on a fake
+    world of n, as a card's mesh runs it (one all-to-all): its result holds
+    its own bytes once the op returns (the fake kernel hands it back as a
+    view of the n-fold `cat` when dst is the outermost dim), the op holds one
+    more buffer of that size while it runs (the received chunks, copied to
+    the gather dim; or the input's copy with the shard dim first), and the
+    wire bytes are the result's at the all-to-all formula."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro_torch.launch.mesh import destroy_fake_world, init_fake_world, make_mesh
+
+    init_fake_world(n)
+    try:
+        mesh = make_mesh((n,), ("d",), "cpu")
+        local = [32, 64, 8, 8]
+        local[src] //= n
+        x = DTensor.from_local(torch.empty(local, dtype=torch.bfloat16, device="meta"), mesh,
+                               [Shard(src)], run_check=False)
+        counter = op_cost._OpCounter()
+        with op_cost.alltoall_as_on_a_card(), counter:
+            y = x.redistribute(mesh, [Shard(dst)])
+            live = counter.live
+    finally:
+        destroy_fake_world()
+    result = 32 * 64 * 8 * 8 // n * 2
+    assert y.to_local().numel() * 2 == result
+    assert live == result
+    assert counter.cost.peak_bytes == 2 * result
+    assert counter.cost.coll_by_kind["all-to-all"] == {"bytes": result * (n - 1) / n, "count": 1}
+
+
+# (gather dim, shard dim, local input shape) of `_dtensor::shard_dim_alltoall`
+# over 4 ranks, and the buffers of the result's size torch's op holds at
+# its peak: with the result, the input's copy with the shard dim first
+# unless that is its layout, and the received chunks when the result is
+# their copy to the gather dim
+ALLTOALL = [(1, 0, (32, 4, 8, 512), 2), (0, 1, (8, 16, 8, 512), 2),
+            (2, 1, (8, 16, 8, 512), 3), (1, 0, (4, 1, 8, 512), 1),
+            (0, 1, (1, 16, 8, 512), 1)]
+
+_ALLTOALL_RANK = """
+import json, sys
+import torch, torch.distributed as dist
+sys.path.insert(0, "tests")
+from test_torch_memory import ALLTOALL, cpu_peak
+rank, backend = int(sys.argv[1]), "{backend}"
+if backend == "nccl":
+    torch.cuda.set_device(rank)
+dist.init_process_group(backend, store=dist.FileStore(sys.argv[2], 4), rank=rank, world_size=4)
+group = dist.group.WORLD.group_name
+
+
+def card_peak(fn):
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - before
+
+
+peaks = []
+for gather, shard, shape, _ in ALLTOALL:
+    x = torch.randn(shape, device="cuda" if backend == "nccl" else "cpu")
+    kept = []
+    peak = (card_peak if backend == "nccl" else cpu_peak)(
+        lambda: kept.append(torch.ops._dtensor.shard_dim_alltoall(x, gather, shard, group)))
+    peaks.append(peak)
+print("PEAKS", json.dumps(peaks), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def _alltoall_peaks(backend, tmp_path):
+    from test_torch_tooling import _gloo4
+
+    ranks = []
+    for out, err in _gloo4(_ALLTOALL_RANK.format(backend=backend), tmp_path, timeout=120):
+        got = [line for line in out.splitlines() if line.startswith("PEAKS ")]
+        assert got, err[-3000:]
+        ranks.append(json.loads(got[0][6:]))
+    return ranks
+
+
+def _alltoall_counts():
+    from repro_torch.launch.mesh import destroy_fake_world, init_fake_world
+
+    init_fake_world(4)
+    try:
+        group = torch.distributed.group.WORLD.group_name
+        return [op_cost.analyze(
+            lambda x: torch.ops._dtensor.shard_dim_alltoall(x, gather, shard, group),
+            torch.empty(shape, device="meta")).peak_bytes for gather, shard, shape, _ in ALLTOALL]
+    finally:
+        destroy_fake_world()
+
+
+def _hold_alltoall(ranks):
+    counts = _alltoall_counts()
+    for (_, _, shape, units), count in zip(ALLTOALL, counts):
+        assert count == units * int(np.prod(shape)) * 4, (shape, count)
+    for rank, peaks in enumerate(ranks):
+        for case, peak, count in zip(ALLTOALL, peaks, counts):
+            assert count == pytest.approx(peak, rel=REL), (rank, case, count, peak)
+
+
+def test_alltoall_count_matches_the_allocator(tmp_path):
+    """torch's `_dtensor::shard_dim_alltoall` run in a 4-process gloo world
+    on the CPU: each rank's allocator peak inside the op, over the input it
+    was given, equals `op_cost`'s count of the same call on meta tensors
+    over a fake world of 4, for each layout of `ALLTOALL`."""
+    _hold_alltoall(_alltoall_peaks("gloo", tmp_path))
+
+
+@pytest.mark.cuda
+def test_alltoall_count_matches_the_cards(tmp_path):
+    """The same, over NCCL on 4 cards: each card's `max_memory_allocated`
+    inside the op against the count."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices")
+    _hold_alltoall(_alltoall_peaks("nccl", tmp_path))
 
 
 def test_once_per_shape_replays_views_of_one_storage():
