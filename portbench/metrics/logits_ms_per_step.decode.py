@@ -1,0 +1,13 @@
+"""logits_ms_per_step.decode (ms): device time of the ops the port launched
+inside its `repro.logits` spans (the unembedding: the f32 copy of the
+table, `repro.logits.table`, and the f32 product), per decode step of the
+traced slice: the union of their intervals, clipped to the slice
+(`harness/spans.py`).  Nothing where the program opens no such span."""
+from portbench.harness import spans
+
+
+def read(rec):
+    sp = spans.read(rec)
+    if sp is None or "repro.logits" not in sp.ranges or not rec.slice:
+        return None
+    return 1e3 * sp.device_s("repro.logits") / rec.slice["steps"]

@@ -75,6 +75,7 @@ from repro_torch.distributed.sharding import (active_rules, constrain, partial_g
                                              write_row)
 from repro_torch.models import layers as L
 from repro_torch.models.params import ParamDesc
+from repro_torch.models.spans import span
 
 NEG_INF = -1e30
 HEADS = ("batch", None, "heads", None)   # q, k, v and o: (B, S, H, D)
@@ -673,50 +674,58 @@ def apply_attn(cfg: ModelConfig, p, x, *, window: int, causal: bool = True,
             # the query rows split: the norm's output stays sharded along
             # them, and each rank projects, attends and projects back its own
             n = active_rules(x).mesh_shape[axis]
-            h = _split_rows(L.apply_norm(cfg, p["norm"], x, axes=ROWS_D), n)
-            kv_src = _split_rows(enc_out, n) if cross else h
-            q, = _project_rows(cfg, p, h, "q", rope=rope)
-            k, v = _project_rows(cfg, p, kv_src, "kv", rope=rope)
+            with span("repro.attn.qkv"):
+                h = _split_rows(L.apply_norm(cfg, p["norm"], x, axes=ROWS_D), n)
+                kv_src = _split_rows(enc_out, n) if cross else h
+                q, = _project_rows(cfg, p, h, "q", rope=rope)
+                k, v = _project_rows(cfg, p, kv_src, "kv", rope=rope)
             T = (enc_out if cross else x).shape[1]
-            o = _rows_attention(cfg, q, k, v, axis=axis, kind=kind, scale=scale, window=window,
-                                kv_len=T)
-            out = per_shard(_out_rows, [ROWS, ("heads", "head_dim", "embed")], [ROWS_D],
-                            o, p["wo"])
-            if h.shape[1] != S:
-                out = _whole_rows(out, S)
+            with span("repro.attn.core"):
+                o = _rows_attention(cfg, q, k, v, axis=axis, kind=kind, scale=scale,
+                                    window=window, kv_len=T)
+            with span("repro.attn.out"):
+                out = per_shard(_out_rows, [ROWS, ("heads", "head_dim", "embed")], [ROWS_D],
+                                o, p["wo"])
+                if h.shape[1] != S:
+                    out = _whole_rows(out, S)
             if mode == "prefill" and k.shape[1] != T:
                 k, v = _whole_rows(k, T), _whole_rows(v, T)
         else:
-            h = L.apply_norm(cfg, p["norm"], x)
             kv_axis = None if kernel else _kv_head_axis(cfg, x)
             core = _core(kind, scale=scale, window=window, kv_block=cfg.attn_kv_block,
                          q_block=cfg.attn_q_block)
-            if kv_axis is not None and cfg.n_kv_heads > 1:
-                # each rank projects only the kv heads its q heads read
-                q, = _project_local(h, *p.values(), cfg=cfg, names=tuple(p), which="q",
-                                    rope_start=0 if rope else None)
-                # the kv heads' `per_shard` passes its gradient of h back
-                # whole, q's product as a partial sum: summed as one
-                kv_src = enc_out if cross else partial_grad(h, "heads")
-                ring = window > 0 and not cross
-                o = _heads_attention(cfg, p, constrain(q, HEADS), kv_src, None, None,
-                                     axis=kv_axis, core=core, rope=rope,
-                                     cache=mode == "prefill" and not ring)
-                if mode == "prefill" and not ring:
-                    o, k, v = o
-                elif mode == "prefill":
-                    k, v = _cache_kv(cfg, p, kv_src, window=window, rope=rope)
-            else:
-                # one kv head whole on every rank (`kv_axis`): its products pass
-                # their gradient of h back whole, q's as a partial sum
-                kv_x = enc_out if cross else partial_grad(h, "heads") if kv_axis else None
-                q, k, v = _project_qkv(cfg, p, h, kv_x)
-                if rope:
-                    pos = torch.arange(S, device=x.device)[None]
-                    q = L.positions_for(cfg, q, pos)
-                    k = L.positions_for(cfg, k, pos)
+            own_kv = kv_axis is not None and cfg.n_kv_heads > 1
+            with span("repro.attn.qkv"):
+                h = L.apply_norm(cfg, p["norm"], x)
+                if own_kv:
+                    # each rank projects only the kv heads its q heads read
+                    # (inside the attention below)
+                    q, = _project_local(h, *p.values(), cfg=cfg, names=tuple(p), which="q",
+                                        rope_start=0 if rope else None)
+                    # the kv heads' `per_shard` passes its gradient of h back
+                    # whole, q's product as a partial sum: summed as one
+                    kv_src = enc_out if cross else partial_grad(h, "heads")
+                else:
+                    # one kv head whole on every rank (`kv_axis`): its products
+                    # pass their gradient of h back whole, q's as a partial sum
+                    kv_x = enc_out if cross else partial_grad(h, "heads") if kv_axis else None
+                    q, k, v = _project_qkv(cfg, p, h, kv_x)
+                    if rope:
+                        pos = torch.arange(S, device=x.device)[None]
+                        q = L.positions_for(cfg, q, pos)
+                        k = L.positions_for(cfg, k, pos)
                 q = constrain(q, HEADS)
-                if kernel:
+            with span("repro.attn.core"):
+                if own_kv:
+                    ring = window > 0 and not cross
+                    o = _heads_attention(cfg, p, q, kv_src, None, None,
+                                         axis=kv_axis, core=core, rope=rope,
+                                         cache=mode == "prefill" and not ring)
+                    if mode == "prefill" and not ring:
+                        o, k, v = o
+                    elif mode == "prefill":
+                        k, v = _cache_kv(cfg, p, kv_src, window=window, rope=rope)
+                elif kernel:
                     from repro_torch.kernels import ops as kops
                     o = kops.flash_attention(
                         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
@@ -730,7 +739,8 @@ def apply_attn(cfg: ModelConfig, p, x, *, window: int, causal: bool = True,
                     # rank attends over its own shards
                     o = per_shard(core, [HEADS] * 3, [HEADS], q, _expand_kv(cfg, k),
                                   _expand_kv(cfg, v))
-            out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(o.dtype))
+            with span("repro.attn.out"):
+                out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(o.dtype))
         if mode == "train":
             return L.residual(x, out), None
         if window > 0 and not cross:
@@ -750,37 +760,40 @@ def apply_attn(cfg: ModelConfig, p, x, *, window: int, causal: bool = True,
     # ---- decode: S == 1 ----
     if cache is None:
         raise ValueError("decode needs a cache")
-    h = L.apply_norm(cfg, p["norm"], x)
-    if cross:
-        q = _project(cfg, p, h, "q")
+    with span("repro.attn.qkv"):
+        h = L.apply_norm(cfg, p["norm"], x)
+        if cross:
+            q = _project(cfg, p, h, "q")
+        else:
+            q, k, v = _project_qkv(cfg, p, h)
+            pos = torch.full((B, 1), pos_t, device=x.device)
+            if cfg.pos_embed == "rope":
+                q = L.positions_for(cfg, q, pos)
+                k = L.positions_for(cfg, k, pos)
+            if window > 0:
+                slot = pos_t % cache["k"].shape[1]
+                write_row(cache["k"], slot, k[:, 0])
+                write_row(cache["v"], slot, v[:, 0])
+                write_row(cache["pos"], slot, pos_t)
+            else:
+                write_row(cache["k"], pos_t, k[:, 0])
+                write_row(cache["v"], pos_t, v[:, 0])
+    with span("repro.attn.core"):
         T = cache["k"].shape[1]
-        o = _decode_per_shard(q, _expand_kv(cfg, cache["k"]), _expand_kv(cfg, cache["v"]),
-                              torch.ones(T, dtype=torch.bool, device=x.device), scale)
+        if cross:
+            o = _decode_per_shard(q, _expand_kv(cfg, cache["k"]), _expand_kv(cfg, cache["v"]),
+                                  torch.ones(T, dtype=torch.bool, device=x.device), scale)
+        elif window > 0:
+            pos_c = cache["pos"]
+            mask = (pos_c >= 0) & (pos_c <= pos_t) & (pos_c > pos_t - window)
+            # the ring is whole along its slots
+            o = _decode_per_shard(q, _expand_kv(cfg, cache["k"]), _expand_kv(cfg, cache["v"]),
+                                  mask, scale)
+        else:
+            mask = torch.arange(T, device=x.device)[None] <= pos_t
+            o = _decode(cfg, q, cache["k"], cache["v"], mask, scale)
+    with span("repro.attn.out"):
         out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(o.dtype))
-        return L.residual(x, out), cache
-    q, k, v = _project_qkv(cfg, p, h)
-    pos = torch.full((B, 1), pos_t, device=x.device)
-    if cfg.pos_embed == "rope":
-        q = L.positions_for(cfg, q, pos)
-        k = L.positions_for(cfg, k, pos)
-    if window > 0:
-        W = cache["k"].shape[1]
-        slot = pos_t % W
-        write_row(cache["k"], slot, k[:, 0])
-        write_row(cache["v"], slot, v[:, 0])
-        write_row(cache["pos"], slot, pos_t)
-        pos_c = cache["pos"]
-        mask = (pos_c >= 0) & (pos_c <= pos_t) & (pos_c > pos_t - window)
-        # the ring is whole along its slots
-        o = _decode_per_shard(q, _expand_kv(cfg, cache["k"]), _expand_kv(cfg, cache["v"]),
-                              mask, scale)
-    else:
-        write_row(cache["k"], pos_t, k[:, 0])
-        write_row(cache["v"], pos_t, v[:, 0])
-        T = cache["k"].shape[1]
-        mask = torch.arange(T, device=x.device)[None] <= pos_t
-        o = _decode(cfg, q, cache["k"], cache["v"], mask, scale)
-    out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(o.dtype))
     return L.residual(x, out), cache
 
 

@@ -21,6 +21,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import active_rules, constrain, partial_grad, per_shard
 from repro_torch.models import layers as L
 from repro_torch.models.params import ParamDesc
+from repro_torch.models.spans import span
 
 
 def dt_rank(cfg: ModelConfig) -> int:
@@ -183,43 +184,57 @@ def apply_mamba(cfg: ModelConfig, p, x, *, mode="prefill", cache=None, pos_t=Non
     s = cfg.ssm
     cdt = L.compute_dtype(cfg)
     din = s.expand * x.shape[2]
-    h = L.apply_norm(cfg, p["norm"], x)
-    xin, z = _in_proj(p["in_proj"].to(cdt), h, din, mode)
-    A = -torch.exp(p["A_log"].float())
+    with span("repro.mamba.in_proj"):
+        h = L.apply_norm(cfg, p["norm"], x)
+        xin, z = _in_proj(p["in_proj"].to(cdt), h, din, mode)
 
     if mode in ("train", "prefill"):
         if mode == "train" and cfg.use_pallas:
             raise NotImplementedError(L.FORWARD_ONLY.format(kernel="the selective scan"))
-        xc, tail = causal_conv(xin, p["conv_w"].to(cdt), p["conv_b"].to(cdt))
-        xc = F.silu(xc)
-        dt, Bm, Cm = _gates(cfg, p, xc)
-        if cfg.use_pallas:
-            from repro_torch.kernels import ops as kops
-            y, h_fin = kops.mamba_scan(xc, dt, A, Bm, Cm)
-        else:
-            # local in batch and width: under the dry run's rules each rank
-            # scans its own shards
-            y, h_fin = per_shard(
-                functools.partial(selective_scan, chunk=s.chunk),
-                [("batch", None, "inner")] * 2 + [("inner", None)] + [("batch", None, None)] * 2,
-                [("batch", None, "inner"), ("batch", "inner", None)],
-                xc, dt, A, Bm, Cm)
-        y = y.to(cdt) + xc * p["D"].to(cdt)
-        out = torch.einsum("bsd,de->bse", y * F.silu(z), p["out_proj"].to(cdt))
-        return L.residual(x, out), (None if mode == "train" else {"state": h_fin, "conv": tail})
+        with span("repro.mamba.conv"):
+            xc, tail = causal_conv(xin, p["conv_w"].to(cdt), p["conv_b"].to(cdt))
+            xc = F.silu(xc)
+        with span("repro.mamba.gates"):
+            dt, Bm, Cm = _gates(cfg, p, xc)
+        with span("repro.mamba.scan"):
+            A = -torch.exp(p["A_log"].float())
+            if cfg.use_pallas:
+                from repro_torch.kernels import ops as kops
+                y, h_fin = kops.mamba_scan(xc, dt, A, Bm, Cm)
+            else:
+                # local in batch and width: under the dry run's rules each
+                # rank scans its own shards
+                y, h_fin = per_shard(
+                    functools.partial(selective_scan, chunk=s.chunk),
+                    [("batch", None, "inner")] * 2 + [("inner", None)]
+                    + [("batch", None, None)] * 2,
+                    [("batch", None, "inner"), ("batch", "inner", None)],
+                    xc, dt, A, Bm, Cm)
+        with span("repro.mamba.out"):
+            y = y.to(cdt) + xc * p["D"].to(cdt)
+            out = torch.einsum("bsd,de->bse", y * F.silu(z), p["out_proj"].to(cdt))
+            out = L.residual(x, out)
+        return out, (None if mode == "train" else {"state": h_fin, "conv": tail})
 
     if cache is None:
         raise ValueError("decode needs a cache")
-    xc, window = conv_step(cache["conv"], xin, p["conv_w"].to(cdt), p["conv_b"].to(cdt))
-    xc = F.silu(xc)[:, None]                                           # (B, 1, din)
-    dt, Bm, Cm = _gates(cfg, p, xc)
-    dtf = dt.float()[:, 0]
-    dA = torch.exp(dtf[..., None] * A[None])                           # (B, D, N)
-    dBu = (dtf * xc.float()[:, 0])[..., None] * Bm.float()[:, 0, None, :]
-    h_new = dA * cache["state"] + dBu
-    y = torch.einsum("bdn,bn->bd", h_new, Cm.float()[:, 0])[:, None]
-    y = y.to(cdt) + xc * p["D"].to(cdt)
-    out = torch.einsum("bsd,de->bse", y * F.silu(z), p["out_proj"].to(cdt))
-    cache["state"].copy_(h_new)
-    cache["conv"].copy_(window[:, 1:])
-    return L.residual(x, out), cache
+    # each cache is written as soon as its new value exists: nothing after
+    # reads the cache or writes what its new value was made from
+    with span("repro.mamba.conv"):
+        xc, window = conv_step(cache["conv"], xin, p["conv_w"].to(cdt), p["conv_b"].to(cdt))
+        xc = F.silu(xc)[:, None]                                       # (B, 1, din)
+        cache["conv"].copy_(window[:, 1:])
+    with span("repro.mamba.gates"):
+        dt, Bm, Cm = _gates(cfg, p, xc)
+    with span("repro.mamba.state"):
+        A = -torch.exp(p["A_log"].float())
+        dtf = dt.float()[:, 0]
+        dA = torch.exp(dtf[..., None] * A[None])                       # (B, D, N)
+        dBu = (dtf * xc.float()[:, 0])[..., None] * Bm.float()[:, 0, None, :]
+        h_new = dA * cache["state"] + dBu
+        cache["state"].copy_(h_new)
+        y = torch.einsum("bdn,bn->bd", h_new, Cm.float()[:, 0])[:, None]
+    with span("repro.mamba.out"):
+        y = y.to(cdt) + xc * p["D"].to(cdt)
+        out = torch.einsum("bsd,de->bse", y * F.silu(z), p["out_proj"].to(cdt))
+        return L.residual(x, out), cache

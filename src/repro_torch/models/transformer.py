@@ -36,6 +36,7 @@ from repro_torch.models import rglru as R
 from repro_torch.models import ssm as SSM
 from repro_torch.models.params import (ParamDesc, init_tree, stack_desc,
                                        tree_map, tree_map_desc)
+from repro_torch.models.spans import span
 
 ENC_SPEC = LayerSpec(mixer="attn", window=0, ffn="dense", causal=False)
 
@@ -115,15 +116,16 @@ def apply_layer(cfg: ModelConfig, spec: LayerSpec, p, x, *, mode, cache, pos_t,
     prefill) or its cross cache (decode) after its mixer."""
     c_mix = cache.get("mixer") if cache else None
     aux = 0.0
-    if spec.mixer == "mamba":
-        x, nc = SSM.apply_mamba(cfg, p["mixer"], x, mode=mode, cache=c_mix, pos_t=pos_t)
-    elif spec.mixer == "rglru":
-        x, nc = R.apply_rglru(cfg, p["mixer"], x, mode=mode, cache=c_mix, pos_t=pos_t)
-    elif spec.mixer == "mla":
-        x, nc = A.apply_mla(cfg, p["mixer"], x, mode=mode, cache=c_mix, pos_t=pos_t)
-    else:
-        x, nc = A.apply_attn(cfg, p["mixer"], x, window=spec.window,
-                             causal=spec.causal, mode=mode, cache=c_mix, pos_t=pos_t)
+    with span("repro.mixer"):
+        if spec.mixer == "mamba":
+            x, nc = SSM.apply_mamba(cfg, p["mixer"], x, mode=mode, cache=c_mix, pos_t=pos_t)
+        elif spec.mixer == "rglru":
+            x, nc = R.apply_rglru(cfg, p["mixer"], x, mode=mode, cache=c_mix, pos_t=pos_t)
+        elif spec.mixer == "mla":
+            x, nc = A.apply_mla(cfg, p["mixer"], x, mode=mode, cache=c_mix, pos_t=pos_t)
+        else:
+            x, nc = A.apply_attn(cfg, p["mixer"], x, window=spec.window,
+                                 causal=spec.causal, mode=mode, cache=c_mix, pos_t=pos_t)
     new_cache = {"mixer": nc}
     if spec.cross_attn:
         x, new_cache["cross"] = A.apply_attn(
@@ -131,9 +133,11 @@ def apply_layer(cfg: ModelConfig, spec: LayerSpec, p, x, *, mode, cache, pos_t,
             cache=cache.get("cross") if cache else None, pos_t=pos_t,
             enc_out=enc_out, cross=True)
     if spec.ffn == "dense":
-        x = L.apply_ffn(cfg, p["ffn"], x)
+        with span("repro.ffn"):
+            x = L.apply_ffn(cfg, p["ffn"], x)
     elif spec.ffn == "moe":
-        x, aux = M.apply_moe(cfg, p["moe"], x)
+        with span("repro.moe"):
+            x, aux = M.apply_moe(cfg, p["moe"], x)
     x = constrain(x, ("batch", "seq_act", None))
     if mode == "train":
         if cfg.cotangent_dtype:
@@ -290,9 +294,11 @@ def _logits(cfg: ModelConfig, params, x):
     Both operands go to f32: a bf16 product is exact in f32, so this is the
     JAX package's bf16 dot with an f32 result.
     """
-    table = L.unembed_table(cfg, params).to(x.dtype)
-    logits = torch.matmul(x.float(), table.float().t())
-    return logits[:, :, :cfg.vocab]
+    with span("repro.logits"):
+        with span("repro.logits.table"):
+            table = L.unembed_table(cfg, params).to(x.dtype).float()
+        logits = torch.matmul(x.float(), table.t())
+        return logits[:, :, :cfg.vocab]
 
 
 def chunked_ce_loss(cfg: ModelConfig, params, x, labels):
@@ -356,18 +362,24 @@ def prefill(cfg: ModelConfig, params, tokens, enc_feats=None):
     if cfg.enc_dec:
         with torch.no_grad():
             enc_out = run_encoder(cfg, params, enc_feats)
-    x = embed_tokens(cfg, params, tokens)
-    x, caches, _ = run_blocks(cfg, params["blocks"], x, mode="prefill", enc_out=enc_out)
-    x = L.apply_norm(cfg, params["final_norm"], x)
+    with span("repro.embed"):
+        x = embed_tokens(cfg, params, tokens)
+    with span("repro.blocks"):
+        x, caches, _ = run_blocks(cfg, params["blocks"], x, mode="prefill", enc_out=enc_out)
+    with span("repro.final_norm"):
+        x = L.apply_norm(cfg, params["final_norm"], x)
     return _logits(cfg, params, x[:, -1:]), caches
 
 
 def decode_step(cfg: ModelConfig, params, caches, tokens, pos_t):
     """tokens: (B, 1); pos_t: int -> (logits, caches), caches updated in place."""
-    x = embed_tokens(cfg, params, tokens, pos_offset=pos_t)
-    x, new_caches, _ = run_blocks(cfg, params["blocks"], x, mode="decode",
-                                  caches=caches, pos_t=pos_t)
-    x = L.apply_norm(cfg, params["final_norm"], x)
+    with span("repro.embed"):
+        x = embed_tokens(cfg, params, tokens, pos_offset=pos_t)
+    with span("repro.blocks"):
+        x, new_caches, _ = run_blocks(cfg, params["blocks"], x, mode="decode",
+                                      caches=caches, pos_t=pos_t)
+    with span("repro.final_norm"):
+        x = L.apply_norm(cfg, params["final_norm"], x)
     return _logits(cfg, params, x), new_caches
 
 

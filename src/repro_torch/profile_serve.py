@@ -1,9 +1,12 @@
 """Where the time goes when the port serves: prefill and decode, profiled.
 
 Times each phase without the profiler (host clock after a synchronize), then
-runs it again under `torch.profiler` for the device side: busy time (sum of
-the kernels' own device times), the share of the wall time the card was
-idle, kernel launches, and the kernels that take the most device time.
+runs it again under `torch.profiler` for the device side: the device
+milliseconds of the work launched inside each of the port's `repro.*` spans
+(`models/spans.py`; a span's time holds its children's, so `repro.decode`
+holds the whole step and `repro.mixer` every layer's mixer), kernel
+launches, and the kernels that take the most device time, all a step and
+all from the one profile.
 The cell is `chip_smoke.py`'s: a full-width model (`--arch`, qwen2-1.5b
 by default; `--max-repeats N` caps each layer group's repeats, as
 `serve.py`'s flag does), bf16, batch 4 x 2048 prompt tokens (384 and
@@ -17,6 +20,9 @@ Run:  PYTHONPATH=src python -m repro_torch.profile_serve [--arch <one of
 from __future__ import annotations
 
 import argparse
+import bisect
+import functools
+import itertools
 import json
 import time
 
@@ -30,7 +36,8 @@ from repro_torch.device import device_memory, resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import compute_dtype
 from repro_torch.models.params import init_tree
-from repro_torch.train.steps import make_serve_step
+from repro_torch.models.spans import PREFIX
+from repro_torch.train.steps import make_prefill_step, make_serve_step
 
 BATCH, STEPS = 4, 8
 
@@ -44,19 +51,45 @@ def _wall_ms(fn, n=1) -> float:
     return (time.perf_counter() - t0) * 1e3 / n
 
 
+def span_device_ms(events, n: int) -> dict:
+    """{span: device ms a step}: the device time of the ops launched inside
+    each `repro.*` span, summed over `n` steps.  A CUDA call (`cu*` on the
+    host) belongs to every span whose host range holds its start, and
+    brings the device ops that share its correlation id.  By time, on the
+    one host thread that serves: the profiler's own `device_time_total`
+    counts only the work linked to an ATen op, which leaves out the
+    hand-written kernels, launched through ctypes."""
+    dev = {}
+    for e in events:
+        if e.device_type == DeviceType.CUDA and not e.name.startswith(PREFIX):
+            dev[e.id] = dev.get(e.id, 0.0) + e.time_range.elapsed_us()
+    calls = sorted((e.time_range.start, dev[e.id]) for e in events
+                   if e.device_type == DeviceType.CPU and e.name.startswith("cu") and e.id in dev)
+    starts = [t for t, _ in calls]
+    upto = list(itertools.accumulate((us for _, us in calls), initial=0.0))
+    out = {}
+    for e in events:
+        if e.device_type == DeviceType.CPU and e.name.startswith(PREFIX):
+            i = bisect.bisect_left(starts, e.time_range.start)
+            j = bisect.bisect_left(starts, e.time_range.end)
+            out[e.name] = out.get(e.name, 0.0) + (upto[j] - upto[i]) / 1e3 / n
+    return dict(sorted(out.items()))
+
+
 def _breakdown(fn, n, wall_ms) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
     evs = prof.key_averages()
-    kernels = sorted((e for e in evs if e.device_type == DeviceType.CUDA),
+    # the profiler also draws each span on the device's timeline, from its
+    # first op to its last: not a kernel
+    kernels = sorted((e for e in evs if e.device_type == DeviceType.CUDA
+                      and not e.key.startswith(PREFIX)),
                      key=lambda e: e.self_device_time_total, reverse=True)
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
     launches = sum(e.count for e in evs if e.key.startswith(("cudaLaunch", "cuLaunch")))
-    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
-            "launches": launches / n,
+    return {"wall_ms": wall_ms, "launches": launches / n,
+            "span_device_ms": span_device_ms(prof.events(), n),
             "top_kernels_ms": [[e.key[:70], e.self_device_time_total / 1e3 / n]
                                for e in kernels[:8]]}
 
@@ -80,7 +113,8 @@ def main(argv=None):
                 params=params, prompts=prompts, enc_feats=enc)    # warm-up
 
     with torch.no_grad():
-        prefill = lambda: T.prefill(cfg, params, prompts, enc)  # noqa: E731
+        prefill = functools.partial(make_prefill_step(cfg), params,
+                                    {"tokens": prompts, "enc_feats": enc})
         out = {"prefill": _breakdown(prefill, 1, _wall_ms(prefill, 3))}
         logits, caches = prefill()
         caches = serve.grow_caches(caches, P, P + 2 * STEPS)

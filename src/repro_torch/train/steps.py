@@ -7,6 +7,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import constrain, current_rules, lay_out
 from repro_torch.models import transformer as T
 from repro_torch.models.params import tree_leaves, tree_map
+from repro_torch.models.spans import span
 from repro_torch.optim import adamw
 
 
@@ -85,7 +86,8 @@ def make_train_step(cfg: ModelConfig, hp: adamw.Hyper, grad_placements=None):
 def make_prefill_step(cfg: ModelConfig):
     @torch.no_grad()
     def prefill_step(params, batch):
-        return T.prefill(cfg, params, batch["tokens"], batch.get("enc_feats"))
+        with span("repro.prefill"):
+            return T.prefill(cfg, params, batch["tokens"], batch.get("enc_feats"))
 
     return prefill_step
 
@@ -96,11 +98,13 @@ def make_serve_step(cfg: ModelConfig):
 
     @torch.no_grad()
     def serve_step(params, caches, tokens, pos_t):
-        logits, new_caches = T.decode_step(cfg, params, caches, tokens, pos_t)
-        # under the dry run's rules the argmax reads the vocab whole (a no-op
-        # elsewhere)
-        logits = constrain(logits, ("batch", None, None))
-        nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
-        return nxt, new_caches
+        with span("repro.decode"):
+            logits, new_caches = T.decode_step(cfg, params, caches, tokens, pos_t)
+            # under the dry run's rules the argmax reads the vocab whole (a
+            # no-op elsewhere)
+            logits = constrain(logits, ("batch", None, None))
+            with span("repro.argmax"):
+                nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+            return nxt, new_caches
 
     return serve_step
