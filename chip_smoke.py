@@ -7,8 +7,9 @@ its last line):
   2. hold each kernel against its plain PyTorch version on the card: flash
      attention (head_dim 16-256 and 160, GQA ratios 1, 2, 3, 4, 7 and 8, a
      window shorter than the prompt, bidirectional at 1500 frames), the
-     Mamba selective scan and the RG-LRU scan, over the tests' shapes,
-     ragged shapes and the serving shapes;
+     Mamba selective scan, the RG-LRU scan and the Mamba decode step's
+     state update, over the tests' shapes, ragged shapes and the serving
+     shapes;
   3. check each of the ten archs on a small input (the reduced config, 2
      repeats per layer group), the kernel path on the card against the
      plain path on the CPU, with the MoE routing choices of the two runs
@@ -27,7 +28,8 @@ its last line):
      dense + 4 MoE layers of its 60) (bf16, the kernels in prefill): batch
      4, 2048-token prompts (whisper-large-v3: 1500 encoder frames and a
      384-token prompt), 64 new tokens; count each kernel's launches on
-     each path; peak memory below 80 GB; check decode against prefill in
+     each path (falcon-mamba-7b's decode: the state kernel once a layer a
+     step); peak memory below 80 GB; check decode against prefill in
      bf16 and in f32 (MoE archs at the drop-free capacity, and logged at
      the published one with its drops; gemma3-27b's f32 at 8 of its 62
      layers, and once more at a 1500-token prompt, which the ring cache of
@@ -133,8 +135,8 @@ its last line):
   5. time each kernel at its serving shape beside its bound, its plain
      version and, where one PyTorch call computes the same function, that
      call; for the kernels that take exponentials (flash attention, the
-     Mamba scan), the SFU's floor for them at the SM clock that nvidia-smi
-     reads while the kernel runs;
+     Mamba scan and state update), the SFU's floor for them at the SM
+     clock that nvidia-smi reads while the kernel runs;
 then print the `kernels` line (each serving shape's entry, and
 quickstart's f32 call), the card's name and power limit, and
 {"ok": true, "device": {...}} as the last line.
@@ -182,22 +184,24 @@ BF16_HELD_AGAINST_F32 = {
 # since their f32 weights do not fit the card
 F32_CUT = {"deepseek-v2-236b": "1 dense + 1 MoE layer",
            "gemma3-27b": "8 of 62 layers: 5 local + 1 global, then 2 local"}
-KERNELS = ("flash_attention", "mamba_scan", "rglru_scan")
-# launches of each kernel in one full-width prefill (= one serve: decode is plain)
-SERVE_LAUNCHES = {
-    "qwen2-1.5b": {"flash_attention": 28, "mamba_scan": 0, "rglru_scan": 0},
-    "falcon-mamba-7b": {"flash_attention": 0, "mamba_scan": 64, "rglru_scan": 0},
-    "recurrentgemma-9b": {"flash_attention": 12, "mamba_scan": 0, "rglru_scan": 26},
-    "granite-moe-3b-a800m": {"flash_attention": 32, "mamba_scan": 0, "rglru_scan": 0},
-    "deepseek-v2-236b": {"flash_attention": 0, "mamba_scan": 0, "rglru_scan": 0},
-    "qwen1.5-0.5b": {"flash_attention": 24, "mamba_scan": 0, "rglru_scan": 0},
-    "stablelm-12b": {"flash_attention": 40, "mamba_scan": 0, "rglru_scan": 0},
+KERNELS = ("flash_attention", "mamba_scan", "rglru_scan", "mamba_state_step")
+# launches of each kernel in one full-width serve: the prefill's, and the
+# Mamba state kernel's once a layer in each of the NEW - 1 decode steps (the
+# rest of decode is plain)
+SERVE_LAUNCHES = {arch: dict.fromkeys(KERNELS, 0) | n for arch, n in {
+    "qwen2-1.5b": {"flash_attention": 28},
+    "falcon-mamba-7b": {"mamba_scan": 64, "mamba_state_step": 64 * (NEW - 1)},
+    "recurrentgemma-9b": {"flash_attention": 12, "rglru_scan": 26},
+    "granite-moe-3b-a800m": {"flash_attention": 32},
+    "deepseek-v2-236b": {},
+    "qwen1.5-0.5b": {"flash_attention": 24},
+    "stablelm-12b": {"flash_attention": 40},
     # 52 local and 10 global layers
-    "gemma3-27b": {"flash_attention": 62, "mamba_scan": 0, "rglru_scan": 0},
-    "qwen2-vl-7b": {"flash_attention": 28, "mamba_scan": 0, "rglru_scan": 0},
+    "gemma3-27b": {"flash_attention": 62},
+    "qwen2-vl-7b": {"flash_attention": 28},
     # 32 encoder and 32 decoder self-attention layers; cross-attention is plain
-    "whisper-large-v3": {"flash_attention": 64, "mamba_scan": 0, "rglru_scan": 0},
-}
+    "whisper-large-v3": {"flash_attention": 64},
+}.items()}
 # the kernels' shapes in those prefills
 SERVE_SHAPE = dict(B=BATCH, Hq=12, Hkv=2, S=PROMPT, D=128)        # qwen2-1.5b attention
 LOCAL_SHAPE = dict(B=BATCH, Hq=16, Hkv=1, S=PROMPT, D=256)        # recurrentgemma-9b local layers
@@ -211,6 +215,7 @@ QWEN2VL_SHAPE = dict(B=BATCH, Hq=28, Hkv=4, S=PROMPT, D=128)      # qwen2-vl-7b,
 WHISPER_ENC_SHAPE = dict(B=BATCH, Hq=20, Hkv=20, S=1500, D=64)    # whisper-large-v3's encoder
 GEMMA3_RAGGED_PROMPT = 1500     # 1500 mod 1024 = 476: the ring repair's case
 MAMBA_SHAPE = dict(B=BATCH, S=PROMPT, D=8192, N=16)               # falcon-mamba-7b, dt_rank 256
+MAMBA_STEP_SHAPE = dict(B=256, D=8192, N=16)     # falcon-mamba-7b's decode of 256 sessions
 MAMBA_DT_RANK = 256
 RGLRU_SHAPE = dict(B=BATCH, S=PROMPT, W=4096)                     # recurrentgemma-9b, f32 a and b
 # the device tier: the paper's 20,497 MolDyn jobs (benchmarks/million_tasks.py:4)
@@ -271,6 +276,10 @@ DRYRUN_TIMEOUT_S = 400
 # tests/test_kernels.py's tolerances
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}                 # flash attention, RG-LRU scan
 MAMBA_TOL = {torch.float32: 5e-5, torch.bfloat16: 5e-2}
+# the state kernel against its plain version: the same rounding of each
+# product and sum, so only exp's rounding and the order of y's sum differ
+# (f32 1e-5); a bf16 y within one bf16 rounding of the plain f32 y's (2^-7)
+MAMBA_STEP_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 
 
 def log(phase: str, **nums):
@@ -448,6 +457,51 @@ def phase_mamba_vs_plain(gen) -> float:
     torch.cuda.synchronize()
     check("mamba_scan", torch.cat([y1, y2], 1), y, 1e-5, output="y", case="state carried")
     check("mamba_scan", h2, h, 1e-5, output="h_fin", case="state carried")
+    return worst
+
+
+def mamba_step_inputs(gen, B, D, N, dtype, dt_rank=8):
+    """The decode branch's arguments: h (B,D,N) f32, x (B,D) batch-minor as
+    the conv step leaves it, dt (B,D), A_log (D,N) f32 as Mamba initialises
+    it (log 1..N), and Bm, Cm slices of one (B, dt_rank + 2N) projection
+    (row stride dt_rank + 2N)."""
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+    h = rn(B, D, N)
+    x = rn(D, B).to(dtype).t()
+    dt = torch.nn.functional.softplus(rn(B, D) - 2.0).to(dtype)
+    A_log = torch.log(torch.arange(1, N + 1, device="cuda", dtype=torch.float32)).repeat(D, 1)
+    proj = rn(B, dt_rank + 2 * N).to(dtype)
+    return h, x, dt, A_log, proj[:, dt_rank:dt_rank + N], proj[:, dt_rank + N:]
+
+
+def phase_mamba_step_vs_plain(gen) -> float:
+    from repro_torch.kernels.ops import mamba_state_step
+    from repro_torch.kernels.mamba_step import plain_state_step
+    shapes = [(2, 64, 16), (3, 200, 8), (1, 8192, 16), (5, 130, 16), (1, 3, 8)]
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, D, N in shapes + [tuple(MAMBA_STEP_SHAPE.values())]:
+            h, x, dt, A_log, Bm, Cm = mamba_step_inputs(gen, B, D, N, dtype, MAMBA_DT_RANK)
+            h_plain = h.clone()
+            y = mamba_state_step(h, x, dt, A_log, Bm, Cm)
+            exp_y = plain_state_step(h_plain, x, dt, A_log, Bm, Cm).to(dtype)
+            torch.cuda.synchronize()
+            case = dict(shape=[B, D, N], dtype=str(dtype), b_row_stride=Bm.stride(0))
+            worst = max(worst,
+                        check("mamba_state_step", y, exp_y, MAMBA_STEP_TOL[dtype], output="y", **case),
+                        check("mamba_state_step", h, h_plain, MAMBA_STEP_TOL[torch.float32],
+                              output="h", **case))
+    # 32 steps in a row, the state carried in place
+    h, x, dt, A_log, Bm, Cm = mamba_step_inputs(gen, 8, 512, 16, torch.float32)
+    h_plain = h.clone()
+    for _ in range(32):
+        _, x, dt, _, Bm, Cm = mamba_step_inputs(gen, 8, 512, 16, torch.float32)
+        y = mamba_state_step(h, x, dt, A_log, Bm, Cm)
+        exp_y = plain_state_step(h_plain, x, dt, A_log, Bm, Cm)
+    torch.cuda.synchronize()
+    check("mamba_state_step", y, exp_y, 1e-5, output="y", case="32 steps carried")
+    check("mamba_state_step", h, h_plain, 1e-5, output="h", case="32 steps carried")
     return worst
 
 
@@ -1801,6 +1855,33 @@ def time_rglru(gen):
                 max_abs_err=err)
 
 
+def time_mamba_step(gen):
+    from repro_torch.kernels.ops import mamba_state_step
+    from repro_torch.kernels.mamba_step import plain_state_step
+    s = MAMBA_STEP_SHAPE
+    h, x, dt, A_log, Bm, Cm = mamba_step_inputs(gen, *s.values(), torch.bfloat16, MAMBA_DT_RANK)
+    h_plain = h.clone()
+    y = mamba_state_step(h, x, dt, A_log, Bm, Cm)
+    err = (y.float() - plain_state_step(h_plain, x, dt, A_log, Bm, Cm)).abs().max().item()
+    run = lambda: mamba_state_step(h, x, dt, A_log, Bm, Cm)  # noqa: E731
+    ms = cuda_ms(run)
+    plain_ms = cuda_ms(lambda: plain_state_step(h_plain, x, dt, A_log, Bm, Cm))
+    n = s["B"] * s["D"] * s["N"]
+    # per state element: dt*A, the state update (3), y (2); per channel: dt*x
+    flops = 6 * n + s["B"] * s["D"]
+    moved = nbytes(h, h, x, dt, y, A_log) + 2 * s["B"] * s["N"] * Bm.element_size()
+    b_ms, by = bound(flops, moved, PEAK_F32_FLOPS)
+    n_exp = n + s["D"] * s["N"]                                 # exp(dt A) per state; A once
+    clock = sm_clock_mhz(run, ms)
+    floor = exp_floor_ms(n_exp, clock)
+    log("kernel_time", kernel="mamba_state_step", shape=list(s.values()), dtype="bfloat16",
+        b_row_stride=Bm.stride(0), ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+        bound_by=by, flops=flops, bytes=moved, exponentials=n_exp, sm_clock_mhz=clock,
+        exp_floor_ms=floor, max_abs_err=err)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=by,
+                exp_floor_ms=floor, max_abs_err=err)
+
+
 SOURCES = {
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:91"),
@@ -1808,6 +1889,8 @@ SOURCES = {
                    "src/repro/kernels/mamba_scan.py:56"),
     "rglru_scan": ("src/repro_torch/kernels/csrc/rglru_scan.cu",
                    "src/repro/kernels/rglru_scan.py:48"),
+    "mamba_state_step": ("src/repro_torch/kernels/csrc/mamba_step.cu",
+                         "none: the JAX package's decode state update is one plain step"),
 }
 
 
@@ -1817,6 +1900,7 @@ ENTRIES = (("flash_attention@qwen2-1.5b", "flash_attention", "qwen2-1.5b"),
            ("flash_attention@granite-moe-3b-a800m", "flash_attention", "granite-moe-3b-a800m"),
            ("mamba_scan", "mamba_scan", "falcon-mamba-7b"),
            ("rglru_scan", "rglru_scan", "recurrentgemma-9b"),
+           ("mamba_state_step", "mamba_state_step", "falcon-mamba-7b"),
            ("flash_attention@qwen1.5-0.5b", "flash_attention", "qwen1.5-0.5b"),
            ("flash_attention@stablelm-12b", "flash_attention", "stablelm-12b"),
            ("flash_attention@gemma3-27b-local", "flash_attention", "gemma3-27b"),
@@ -1836,6 +1920,7 @@ def phase_kernel_time(gen, launches, worst_err) -> list:
              "flash_attention@recurrentgemma-9b": time_flash(gen, LOCAL_SHAPE, LOCAL_WINDOW),
              "flash_attention@granite-moe-3b-a800m": time_flash(gen, GRANITE_SHAPE, 0),
              "mamba_scan": time_mamba(gen), "rglru_scan": time_rglru(gen),
+             "mamba_state_step": time_mamba_step(gen),
              "flash_attention@qwen1.5-0.5b": time_flash(gen, QWEN15_SHAPE, 0),
              "flash_attention@stablelm-12b": time_flash(gen, STABLELM_SHAPE, 0),
              "flash_attention@gemma3-27b-local": time_flash(gen, GEMMA3_SHAPE, GEMMA3_WINDOW),
@@ -1873,7 +1958,8 @@ def main():
     phase_build()
     worst = {"flash_attention": phase_flash_vs_plain(gen),
              "mamba_scan": phase_mamba_vs_plain(gen),
-             "rglru_scan": phase_rglru_vs_plain(gen)}
+             "rglru_scan": phase_rglru_vs_plain(gen),
+             "mamba_state_step": phase_mamba_step_vs_plain(gen)}
     for arch in ARCHS:
         phase_small_model(arch, seed)
     ws = wrappers()
@@ -1903,7 +1989,7 @@ def main():
     phase_examples(seed)
     launches["quickstart"] = {name: w.launches for name, w in ws.items()}
     log("examples_launches", launches=launches["quickstart"])
-    if launches["quickstart"] != {"flash_attention": 1, "mamba_scan": 0, "rglru_scan": 0}:
+    if launches["quickstart"] != dict.fromkeys(KERNELS, 0) | {"flash_attention": 1}:
         raise AssertionError(f"the examples phase launched {launches['quickstart']}; "
                              f"quickstart's one flash call should be the only launch")
     for w in ws.values():

@@ -7,8 +7,9 @@ state, with the reference's work-efficient associative scan inside each
 chunk (the odd/even recursion of `jax.lax.associative_scan`, `linear_scan`),
 so that the (chunk, D, N) intermediates are the only expanded tensors.  With
 `cfg.use_pallas`, prefill goes through the hand-written kernel
-(`repro_torch.kernels.ops.mamba_scan`) instead; decode is one plain step, as
-in the reference.
+(`repro_torch.kernels.ops.mamba_scan`) instead, and decode's state update
+through `repro_torch.kernels.ops.mamba_state_step` (the reference's decode
+is one plain step, `kernels.mamba_step.plain_state_step` here).
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import active_rules, constrain, partial_grad, per_shard
+from repro_torch.kernels.mamba_step import plain_state_step
 from repro_torch.models import layers as L
 from repro_torch.models.params import ParamDesc
 from repro_torch.models.spans import span
@@ -227,14 +229,14 @@ def apply_mamba(cfg: ModelConfig, p, x, *, mode="prefill", cache=None, pos_t=Non
     with span("repro.mamba.gates"):
         dt, Bm, Cm = _gates(cfg, p, xc)
     with span("repro.mamba.state"):
-        A = -torch.exp(p["A_log"].float())
-        dtf = dt.float()[:, 0]
-        dA = torch.exp(dtf[..., None] * A[None])                       # (B, D, N)
-        dBu = (dtf * xc.float()[:, 0])[..., None] * Bm.float()[:, 0, None, :]
-        h_new = dA * cache["state"] + dBu
-        cache["state"].copy_(h_new)
-        y = torch.einsum("bdn,bn->bd", h_new, Cm.float()[:, 0])[:, None]
+        # the new state is written into the cache in place
+        step = (cache["state"], xc[:, 0], dt[:, 0], p["A_log"].float(), Bm[:, 0], Cm[:, 0])
+        if cfg.use_pallas:
+            from repro_torch.kernels import ops as kops
+            y = kops.mamba_state_step(*step)
+        else:
+            y = plain_state_step(*step)
     with span("repro.mamba.out"):
-        y = y.to(cdt) + xc * p["D"].to(cdt)
+        y = y[:, None].to(cdt) + xc * p["D"].to(cdt)
         out = torch.einsum("bsd,de->bse", y * F.silu(z), p["out_proj"].to(cdt))
         return L.residual(x, out), cache
