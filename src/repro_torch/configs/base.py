@@ -34,7 +34,16 @@ class MoEConfig:
     capacity_factor: float = 1.25
     group_size: int = 2048      # tokens per dispatch group
     aux_loss_weight: float = 0.01
-    dispatch: str = "scatter"   # scatter | index
+    dispatch: str = "scatter"   # scatter | index | dropless
+    # the port's own options (the JAX package has none of them); their
+    # defaults keep its arithmetic
+    renormalize: bool = True    # top-k gates divided by their sum
+    n_held: int = 0             # experts held here, 0 -> all n_experts
+    first_held: int = 0         # the router's index of the first held expert
+
+    @property
+    def held(self) -> int:
+        return self.n_held or self.n_experts
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,6 +53,9 @@ class SSMConfig:
     expand: int = 2
     dt_rank: int = 0            # 0 -> ceil(d_model/16)
     chunk: int = 128            # time-chunk for the scan
+    # RMS norms of dt, B and C with learned scales (Jamba); the port's own
+    # option, off as in the JAX package
+    inner_norms: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,7 +86,7 @@ class ModelConfig:
     tie_embeddings: bool = True
     embed_scale: bool = False   # gemma-style sqrt(d) embedding scaling
     rope_theta: float = 10000.0
-    pos_embed: str = "rope"     # rope | sinusoidal (whisper)
+    pos_embed: str = "rope"     # rope | sinusoidal (whisper) | none
     mrope_sections: tuple[int, ...] = ()   # qwen2-vl M-RoPE (t,h,w) head_dim split
     # MLA (deepseek)
     mla_q_lora: int = 0
@@ -136,8 +148,26 @@ class ModelConfig:
         d = self.d_model
         per_expert = 3 * d * m.expert_ff if self.gated_ffn else 2 * d * m.expert_ff
         n_moe_layers = sum(1 for s in self.layer_specs() if s.ffn == "moe")
-        inactive = n_moe_layers * (m.n_experts - m.top_k) * per_expert
+        inactive = n_moe_layers * max(0, m.held - m.top_k) * per_expert
         return total - inactive
+
+
+# the options of the port's own, which the JAX package's configs lack
+PORT_OPTIONS = {"moe": ("renormalize", "n_held", "first_held"), "ssm": ("inner_norms",)}
+_DEFAULTS = {"moe": MoEConfig(), "ssm": SSMConfig()}
+
+
+def reference_dict(cfg: ModelConfig) -> dict:
+    """`dataclasses.asdict(cfg)` less each option of `PORT_OPTIONS` that
+    holds its default: the JAX package's config of the same arch reads the
+    same where the port keeps that package's arithmetic."""
+    out = dataclasses.asdict(cfg)
+    for sub, names in PORT_OPTIONS.items():
+        if out[sub] is not None:
+            for name in names:
+                if out[sub][name] == getattr(_DEFAULTS[sub], name):
+                    del out[sub][name]
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,9 @@
 """Architecture registry + reduced (smoke) config factory.
 
-The port runs all ten of the JAX package's architectures.
+The port runs all ten of the JAX package's architectures (`ARCH_NAMES`),
+and one of its own, ai21-jamba2-mini, which `get_config` resolves but
+`ARCH_NAMES` leaves out: that list is the JAX package's, and the tests
+hold the port to that package arch by arch.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ _MODULES = {
     "gemma3-27b": "gemma3_27b",
     "qwen2-vl-7b": "qwen2_vl_7b",
     "whisper-large-v3": "whisper_large_v3",
+    "ai21-jamba2-mini": "ai21_jamba2_mini",
 }
 
 

@@ -17,6 +17,24 @@ reference's (B, E, c, d), so that each expert's slots of the whole batch
 are one contiguous (B * c, d) matrix and the expert products are three
 batched GEMMs with no permuting copy; it holds the same rows.
 
+A third mode, "dropless", serves a layer that holds only some of the
+experts (`MoEConfig.n_held` from `first_held`, the card's share under
+expert parallelism; all of them by default): the router still scores all
+`n_experts`, and every assignment to a held expert is computed, at any
+skew, with no host synchronisation.  The assignments are sorted by held
+expert on the device (the others last), the counts' running sums are the
+group offsets of `torch._grouped_mm`, whose three products compute each
+held expert's rows, and each assignment's row goes back to its token and
+is weighted by its gate.  What the absent experts would add is left out:
+another card adds it.  No capacity, no group.  `MoEConfig.renormalize`
+off uses the top-k probabilities as they are (Jamba).
+
+While the profiler records (`spans.recording`), each layer also counts,
+in device tensors, its assignments, those to held experts (per expert)
+and those dropped past capacity (`counters`); otherwise it pays one flag
+check and launches nothing for them.  Under the dry run's rules it counts
+nothing.
+
 Under the dry run's rules the slot count, the dispatch and the combine run
 on each rank's own batch rows (`per_shard`; capacity is per sequence
 group, so no rank needs another's), as the reference's per-row vmap does,
@@ -40,6 +58,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import active_rules, add_partial, per_row, per_shard
 from repro_torch.models import layers as L
 from repro_torch.models.params import ParamDesc, axis_size, placements
+from repro_torch.models.spans import recording, span
 
 EXPERT_ROWS = ("experts", "batch", None, None)   # the buffer, (E, B, c, d)
 ROWS = ("batch", None, None)                      # per batch row: (B, t, .) or (B, K, t)
@@ -47,11 +66,12 @@ ROWS = ("batch", None, None)                      # per batch row: (B, t, .) or 
 
 def moe_descs(cfg: ModelConfig):
     m = cfg.moe
-    d, E, eff = cfg.d_model, m.n_experts, m.expert_ff
+    d, E, eff = cfg.d_model, m.held, m.expert_ff
     descs = {
         "norm": L.norm_descs(cfg),
-        # the router is read in f32, so it is stored in f32 in any compute dtype
-        "router": ParamDesc((d, E), ("embed", "experts"), f32=True),
+        # the router is read in f32, so it is stored in f32 in any compute
+        # dtype; it scores every expert, held here or not
+        "router": ParamDesc((d, m.n_experts), ("embed", "experts"), f32=True),
         "w1": ParamDesc((E, d, eff), ("experts", "embed", "expert_ff")),
         "w3": ParamDesc((E, d, eff), ("experts", "embed", "expert_ff")),
         "w2": ParamDesc((E, eff, d), ("experts", "expert_ff", "embed")),
@@ -75,18 +95,21 @@ def capacity(g: int, k: int, E: int, factor: float) -> int:
 
 def route(cfg: ModelConfig, p, h):
     """h: (B, t, d) -> probs (B, t, E) f32, gate_w (B, t, K) f32 (the top-k
-    probabilities, descending, renormalized by their sum) and gate_idx
-    (B, t, K)."""
+    probabilities, descending, renormalized by their sum unless
+    `renormalize` is off) and gate_idx (B, t, K)."""
     logits = torch.matmul(h.float(), p["router"].float())
     probs = torch.softmax(logits, dim=-1)
-    gate_w, gate_idx = per_row(functools.partial(_top_k, k=cfg.moe.top_k), probs)
+    gate_w, gate_idx = per_row(functools.partial(_top_k, k=cfg.moe.top_k,
+                                                 renormalize=cfg.moe.renormalize), probs)
     return probs, gate_w, gate_idx
 
 
-def _top_k(probs, k: int):
+def _top_k(probs, k: int, renormalize: bool = True):
     """Each row's k largest probabilities, descending, renormalized by
-    their sum, and their experts."""
+    their sum if `renormalize`, and their experts."""
     gate_w, gate_idx = torch.topk(probs, k, dim=-1)
+    if not renormalize:
+        return gate_w, gate_idx
     return gate_w / torch.clamp(gate_w.sum(-1, keepdim=True), min=1e-9), gate_idx
 
 
@@ -152,24 +175,36 @@ def _route_chunk(cfg: ModelConfig, p, h):
     c = capacity(t, K, E, m.capacity_factor)
     cdt = h.dtype
 
-    probs, gate_w, gate_idx = route(cfg, p, h)
-    # Switch balance loss, E * sum_e f_e * P_e per group, averaged over B
-    f = per_shard(functools.partial(_load, n_experts=E), [ROWS], [("batch", None)], gate_idx)
-    aux = (E * (f * probs.mean(dim=1)).sum(-1)).mean()
+    with span("repro.moe.route"):
+        probs, gate_w, gate_idx = route(cfg, p, h)
+        aux = _balance(probs, gate_idx, E)
+        slot, keep = per_shard(functools.partial(slots, n_experts=E, c=c), [ROWS],
+                               [ROWS, ROWS], gate_idx)
+        if _counting(gate_idx):
+            _count(p, torch.zeros(E, dtype=torch.long, device=h.device).index_add_(
+                0, gate_idx.reshape(-1), torch.ones_like(gate_idx.reshape(-1))),
+                gate_idx.numel(), (~keep).sum())
+        xe = per_shard(functools.partial(_dispatch, m.dispatch, n_experts=E, c=c),
+                       [ROWS, ROWS], [(None, "batch", None, None)], h, slot)
+        xe = _expert_rows(xe).view(E, B * c, d)
 
-    slot, keep = per_shard(functools.partial(slots, n_experts=E, c=c), [ROWS], [ROWS, ROWS],
-                           gate_idx)
-    xe = per_shard(functools.partial(_dispatch, m.dispatch, n_experts=E, c=c), [ROWS, ROWS],
-                   [(None, "batch", None, None)], h, slot)
-    xe = _expert_rows(xe).view(E, B * c, d)
+    with span("repro.moe.experts"):
+        act = L.act_fn(cfg.act)
+        a = act(torch.bmm(xe, p["w1"].to(cdt))) * torch.bmm(xe, p["w3"].to(cdt))
+        del xe
+        ye = _expert_rows(torch.bmm(a, p["w2"].to(cdt)).view(E, B, c, d))
+        del a
+    with span("repro.moe.combine"):
+        return per_shard(_combine, [(None, "batch", None, None), ROWS, ROWS, ROWS], [ROWS],
+                         ye, slot, keep, gate_w), aux
 
-    act = L.act_fn(cfg.act)
-    a = act(torch.bmm(xe, p["w1"].to(cdt))) * torch.bmm(xe, p["w3"].to(cdt))
-    del xe
-    ye = _expert_rows(torch.bmm(a, p["w2"].to(cdt)).view(E, B, c, d))
-    del a
-    return per_shard(_combine, [(None, "batch", None, None), ROWS, ROWS, ROWS], [ROWS],
-                     ye, slot, keep, gate_w), aux
+
+def _balance(probs, gate_idx, n_experts: int):
+    """The Switch balance loss, E * sum_e f_e * P_e per group (B, t, .),
+    averaged over B."""
+    f = per_shard(functools.partial(_load, n_experts=n_experts), [ROWS], [("batch", None)],
+                  gate_idx)
+    return (n_experts * (f * probs.mean(dim=1)).sum(-1)).mean()
 
 
 def _expert_rows(x):
@@ -217,15 +252,105 @@ def _combine(ye, slot, keep, gate_w):
     return y
 
 
+def _held_offsets(gate_idx, first: int, n_held: int):
+    """gate_idx (N, K) -> (order, offs, held): `order` the assignments
+    (flat, token-major) sorted by held expert, stably, the others last;
+    `offs` (n_held,) int32 the running sums of the held experts' counts
+    (each group's end, `torch._grouped_mm`'s offsets); `held` (N K,) bool,
+    in sorted order, whether the assignment's expert is held.  All on the
+    device: a search of the sorted keys, no count read back."""
+    local = gate_idx.reshape(-1) - first
+    key = torch.where((local >= 0) & (local < n_held), local, n_held)
+    key, order = torch.sort(key, stable=True)
+    ends = torch.arange(n_held, device=key.device, dtype=key.dtype)
+    offs = torch.searchsorted(key, ends, right=True).to(torch.int32)
+    return order, offs, key < n_held
+
+
+def _apply_dropless(cfg: ModelConfig, p, x):
+    """The "dropless" mode: x (B, S, d) -> (x + moe_out, aux); aux over one
+    group a sequence."""
+    m = cfg.moe
+    B, S, d = x.shape
+    K = m.top_k
+    with span("repro.moe.route"):
+        h = L.apply_norm(cfg, p["norm"], x)
+        cdt = h.dtype
+        probs, gate_w, gate_idx = route(cfg, p, h)
+        aux = _balance(probs, gate_idx, m.n_experts)
+        order, offs, held = _held_offsets(gate_idx.reshape(B * S, K), m.first_held, m.held)
+        if _counting(gate_idx):
+            _count(p, torch.diff(offs, prepend=offs.new_zeros(1)).long(), B * S * K, 0)
+        xs = h.reshape(B * S, d)[order // K]
+    with span("repro.moe.experts"):
+        # rows offs[e-1]:offs[e] by held expert e's matrices; the rows past
+        # offs[-1] (unheld experts') are left unwritten
+        act = L.act_fn(cfg.act)
+        a = act(torch._grouped_mm(xs, p["w1"].to(cdt), offs=offs)) \
+            * torch._grouped_mm(xs, p["w3"].to(cdt), offs=offs)
+        del xs
+        ys = torch._grouped_mm(a, p["w2"].to(cdt), offs=offs)
+        del a
+    with span("repro.moe.combine"):
+        ys = torch.where(held[:, None], ys, 0)
+        back = torch.empty_like(ys).index_copy_(0, order, ys).view(B, S, K, d)
+        out = gate_w[:, :, 0, None].to(cdt) * back[:, :, 0]
+        for k in range(1, K):
+            out = out + gate_w[:, :, k, None].to(cdt) * back[:, :, k]
+        return L.residual(x, out), aux * m.aux_loss_weight
+
+
+# per-layer counts, while the profiler records: the layer's router (a view
+# of its group's stacked tensor) names the layer
+_COUNTS: dict[int, list] = {}
+
+
+def _counting(gate_idx) -> bool:
+    """Whether the layer counts: while the profiler records, and not under
+    the dry run's rules (a serving card's counters, not a sharded step's)."""
+    return recording() and active_rules(gate_idx) is None
+
+
+def _count(p, per_expert, assigned: int, dropped):
+    """Add one call's counts to the layer's: `per_expert` (held experts,)
+    assignments routed to each, `assigned` all K t of the call, `dropped`
+    those past capacity (a tensor or 0)."""
+    _COUNTS.setdefault(p["router"].data_ptr(), []).append((per_expert, assigned, dropped))
+
+
+def counters() -> list[dict]:
+    """Each MoE layer's counts since `reset_counters`, in the order the
+    layers first ran: {"assigned", "held", "dropped", "per_expert" (a list
+    per held expert), "calls" (each call's per-expert list)}."""
+    out = []
+    for calls in _COUNTS.values():
+        per_call = [c.tolist() for c, _, _ in calls]
+        per_expert = [sum(col) for col in zip(*per_call)]
+        out.append({"assigned": sum(a for _, a, _ in calls), "held": sum(per_expert),
+                    "dropped": sum(int(dr) for _, _, dr in calls),
+                    "per_expert": per_expert, "calls": per_call})
+    return out
+
+
+def reset_counters():
+    _COUNTS.clear()
+
+
 def apply_moe(cfg: ModelConfig, p, x):
     """x: (B, S, d) -> (x + moe_out, aux_loss * aux_loss_weight).
 
-    The sequence is routed in groups of g = min(group_size, S) tokens, g
-    shrunk until it divides S (2049 -> 683); aux is averaged over the
-    groups."""
+    The "dropless" mode: `_apply_dropless`.  Otherwise the sequence is
+    routed in groups of g = min(group_size, S) tokens, g shrunk until it
+    divides S (2049 -> 683); aux is averaged over the groups."""
     m = cfg.moe
+    if m.dispatch == "dropless":
+        return _apply_dropless(cfg, p, x)
+    if m.held != m.n_experts:
+        raise ValueError(f"a layer that holds {m.held} of {m.n_experts} experts needs the "
+                         f"dropless dispatch; got {m.dispatch!r}")
     B, S, d = x.shape
-    h = L.apply_norm(cfg, p["norm"], x)
+    with span("repro.moe.route"):
+        h = L.apply_norm(cfg, p["norm"], x)
     g = min(m.group_size, S)
     while S % g:
         g -= 1

@@ -18,7 +18,8 @@ switch.
 
 The names are fixed, so that `key_averages()` and the benchmark group by
 them: `repro.prefill`, `repro.decode`, `repro.embed`, `repro.blocks`,
-`repro.mixer`, `repro.ffn`, `repro.moe`, `repro.attn.{qkv,core,out}`,
+`repro.mixer`, `repro.ffn`, `repro.moe`, `repro.moe.{route,experts,combine}`,
+`repro.attn.{qkv,core,out}`,
 `repro.mamba.{in_proj,conv,gates,scan,state,out}`, `repro.final_norm`,
 `repro.logits`, `repro.logits.table`, `repro.argmax`.
 """
@@ -32,10 +33,11 @@ from torch.profiler import record_function
 PREFIX = "repro."
 
 _OFF = contextlib.nullcontext()
-_recording = torch._C._autograd._profiler_enabled
+# whether the profiler records: the spans' switch, and the MoE counters'
+recording = torch._C._autograd._profiler_enabled
 
 
 def span(name: str):
     """A context that is a `record_function(name)` range while the profiler
     records, and a no-op otherwise."""
-    return record_function(name) if _recording() else _OFF
+    return record_function(name) if recording() else _OFF

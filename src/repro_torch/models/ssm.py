@@ -10,6 +10,11 @@ so that the (chunk, D, N) intermediates are the only expanded tensors.  With
 (`repro_torch.kernels.ops.mamba_scan`) instead, and decode's state update
 through `repro_torch.kernels.ops.mamba_state_step` (the reference's decode
 is one plain step, `kernels.mamba_step.plain_state_step` here).
+
+With `cfg.ssm.inner_norms` (Jamba's mixer) dt's low-rank input, B and C
+are RMS-normed, each with a learned scale, after `x_proj` and before the
+scan, the state update or the train scan (`_gates`); off, as in the JAX
+package, the kernels' inputs are those of plain Mamba-1.
 """
 from __future__ import annotations
 
@@ -36,7 +41,13 @@ def mamba_descs(cfg: ModelConfig):
     din = s.expand * d
     dtr = dt_rank(cfg)
     N, K = s.d_state, s.d_conv
+    norms = {} if not s.inner_norms else {
+        "dt_norm": ParamDesc((dtr,), (None,), init="ones", f32=True),
+        "b_norm": ParamDesc((N,), ("state",), init="ones", f32=True),
+        "c_norm": ParamDesc((N,), ("state",), init="ones", f32=True),
+    }
     return {
+        **norms,
         "norm": L.norm_descs(cfg),
         "in_proj": ParamDesc((d, 2 * din), ("embed", "inner")),
         "conv_w": ParamDesc((K, din), (None, "inner")),
@@ -140,7 +151,8 @@ def selective_scan(u, dt, A, Bm, Cm, *, chunk: int, h0=None):
 
 def _gates(cfg: ModelConfig, p, xc):
     """The scan's inputs from the conv output: (dt, Bm, Cm).  Bm and Cm are
-    slices of one projection (strided views)."""
+    slices of one projection (strided views), or with `inner_norms` their
+    norms' outputs."""
     cdt = L.compute_dtype(cfg)
     dtr, N = dt_rank(cfg), cfg.ssm.d_state
     proj = torch.einsum("bsd,de->bse", xc, p["x_proj"].to(cdt))
@@ -151,6 +163,9 @@ def _gates(cfg: ModelConfig, p, xc):
     # product that of dt_r as a partial sum: summed as one
     bc = partial_grad(proj, "inner")
     dt_r, Bm, Cm = proj[..., :dtr], bc[..., dtr:dtr + N], bc[..., dtr + N:]
+    if cfg.ssm.inner_norms:
+        dt_r = L.rms_head_norm(p["dt_norm"], dt_r)
+        Bm, Cm = L.rms_head_norm(p["b_norm"], Bm), L.rms_head_norm(p["c_norm"], Cm)
     dt = F.softplus(torch.einsum("bsr,rd->bsd", dt_r, p["dt_proj"].to(cdt))
                     + p["dt_bias"].to(cdt))
     return dt, Bm, Cm
