@@ -7,9 +7,11 @@ its last line):
   2. hold each kernel against its plain PyTorch version on the card: flash
      attention (head_dim 16-256 and 160, GQA ratios 1, 2, 3, 4, 7 and 8, a
      window shorter than the prompt, bidirectional at 1500 frames), the
-     Mamba selective scan, the RG-LRU scan and the Mamba decode step's
-     state update, over the tests' shapes, ragged shapes and the serving
-     shapes;
+     Mamba selective scan, the RG-LRU scan, the Mamba decode step's state
+     update and attention decode over a global cache (every head dim and
+     group 1-16 of the archs, f32 and bf16, lengths of one row, ragged and
+     whole, and the `decode_kv` cells' shapes, the cache left unwritten),
+     over the tests' shapes, ragged shapes and the serving shapes;
   3. check each of the ten archs on a small input (the reduced config, 2
      repeats per layer group), the kernel path on the card against the
      plain path on the CPU, with the MoE routing choices of the two runs
@@ -29,7 +31,9 @@ its last line):
      4, 2048-token prompts (whisper-large-v3: 1500 encoder frames and a
      384-token prompt), 64 new tokens; count each kernel's launches on
      each path (falcon-mamba-7b's decode: the state kernel once a layer a
-     step); peak memory below 80 GB; check decode against prefill in
+     step; every global attention layer's decode: the decode kernel, two
+     launches a step where the length is cut into splits); peak memory
+     below 80 GB; check decode against prefill in
      bf16 and in f32 (MoE archs at the drop-free capacity, and logged at
      the published one with its drops; gemma3-27b's f32 at 8 of its 62
      layers, and once more at a 1500-token prompt, which the ring cache of
@@ -134,9 +138,11 @@ its last line):
      kernel is launched in 4e-4g;
   5. time each kernel at its serving shape beside its bound, its plain
      version and, where one PyTorch call computes the same function, that
-     call; for the kernels that take exponentials (flash attention, the
-     Mamba scan and state update), the SFU's floor for them at the SM
-     clock that nvidia-smi reads while the kernel runs;
+     call (the decode kernel at both `decode_kv` cells' shapes, lengths
+     4,097 and 6,144, beside SDPA with `enable_gqa`); for the kernels that
+     take exponentials (flash attention, the Mamba scan and state update),
+     the SFU's floor for them at the SM clock that nvidia-smi reads while
+     the kernel runs;
 then print the `kernels` line (each serving shape's entry, and
 quickstart's f32 call), the card's name and power limit, and
 {"ok": true, "device": {...}} as the last line.
@@ -184,10 +190,12 @@ BF16_HELD_AGAINST_F32 = {
 # since their f32 weights do not fit the card
 F32_CUT = {"deepseek-v2-236b": "1 dense + 1 MoE layer",
            "gemma3-27b": "8 of 62 layers: 5 local + 1 global, then 2 local"}
-KERNELS = ("flash_attention", "mamba_scan", "rglru_scan", "mamba_state_step")
-# launches of each kernel in one full-width serve: the prefill's, and the
-# Mamba state kernel's once a layer in each of the NEW - 1 decode steps (the
-# rest of decode is plain)
+KERNELS = ("flash_attention", "mamba_scan", "rglru_scan", "mamba_state_step",
+           "decode_attention_kernel")
+# launches of each kernel in one full-width serve: the prefill's, the Mamba
+# state kernel's once a layer in each of the NEW - 1 decode steps, and the
+# decode kernel's in each global attention layer of those steps
+# (`decode_launches`; the rest of decode is plain)
 SERVE_LAUNCHES = {arch: dict.fromkeys(KERNELS, 0) | n for arch, n in {
     "qwen2-1.5b": {"flash_attention": 28},
     "falcon-mamba-7b": {"mamba_scan": 64, "mamba_state_step": 64 * (NEW - 1)},
@@ -202,6 +210,10 @@ SERVE_LAUNCHES = {arch: dict.fromkeys(KERNELS, 0) | n for arch, n in {
     # 32 encoder and 32 decoder self-attention layers; cross-attention is plain
     "whisper-large-v3": {"flash_attention": 64},
 }.items()}
+# the decode kernel at the decode_kv cells: (B, T, Hkv, D, group) of
+# qwen2-1.5b and ai21-jamba2-mini, at the window's first and last lengths
+DECODE_CELLS = {"qwen2-1.5b": (64, 6144, 2, 128, 6), "ai21-jamba2-mini": (64, 6144, 8, 128, 4)}
+DECODE_LENGTHS = (4097, 6144)
 # the kernels' shapes in those prefills
 SERVE_SHAPE = dict(B=BATCH, Hq=12, Hkv=2, S=PROMPT, D=128)        # qwen2-1.5b attention
 LOCAL_SHAPE = dict(B=BATCH, Hq=16, Hkv=1, S=PROMPT, D=256)        # recurrentgemma-9b local layers
@@ -280,6 +292,17 @@ MAMBA_TOL = {torch.float32: 5e-5, torch.bfloat16: 5e-2}
 # product and sum, so only exp's rounding and the order of y's sum differ
 # (f32 1e-5); a bf16 y within one bf16 rounding of the plain f32 y's (2^-7)
 MAMBA_STEP_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+# the decode kernel against its plain version: tests/test_kernels.py's
+# tolerances over its coverage (bf16 rounds p before the PV product in both);
+# at the decode_kv cells' shapes, where a typical |o| is only ~0.02, 4x the
+# widest error measured there (9.8e-4 in bf16, an ulp of o's rounding)
+DECODE_TOL = TOL
+DECODE_CELL_TOL = {torch.bfloat16: 4e-3}
+# the counting case (k = 0, v one-hot along (t + b + h) mod D): o[d] is the
+# share of the positions below length that land on d, exact in f32 and within
+# one rounding (2^-8) in bf16, while a position left out, counted twice or
+# read past length moves some o[d] by 1 / (length / D), 2% or more
+COUNT_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 
 
 def log(phase: str, **nums):
@@ -502,6 +525,62 @@ def phase_mamba_step_vs_plain(gen) -> float:
     torch.cuda.synchronize()
     check("mamba_state_step", y, exp_y, 1e-5, output="y", case="32 steps carried")
     check("mamba_state_step", h, h_plain, 1e-5, output="h", case="32 steps carried")
+    return worst
+
+
+def decode_inputs(gen, B, T, Hkv, D, group, dtype):
+    """q (B, 1, Hq, D), and k, v as decode hands them over: the second
+    layer's views of stacked (2, B, T, Hkv, D) caches."""
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+    return rn(B, 1, Hkv * group, D), rn(2, B, T, Hkv, D)[1], rn(2, B, T, Hkv, D)[1]
+
+
+def phase_decode_vs_plain(gen) -> float:
+    """The decode kernel against its plain version: every head dim, groups
+    1-16, f32 and bf16, at one row, ragged lengths across splits and tiles
+    and the whole cache; then the decode_kv cells' shapes, held tighter
+    (DECODE_CELL_TOL).  Each case also runs the counting case against its
+    exact output, which fails if a single position below length is left
+    out or one past it is read.  One line a case (its widest errors over
+    the lengths); the cache must come back unwritten."""
+    from repro_torch.kernels.decode_attention import (counting_exact, counting_inputs,
+                                                      plain_decode_attention)
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    from repro_torch.kernels.ops import decode_attention_kernel
+    cases = [(3, 700, 2, D, g, dtype, (1, 77, 515, 700), DECODE_TOL[dtype]) for D in HEAD_DIMS
+             for g in (1, 3, 4, 6, 7, 16) for dtype in (torch.float32, torch.bfloat16)]
+    cases += [(*shape, torch.bfloat16, DECODE_LENGTHS, DECODE_CELL_TOL[torch.bfloat16])
+              for shape in DECODE_CELLS.values()]
+    worst = 0.0
+    for B, T, Hkv, D, g, dtype, lengths, tol in cases:
+        q, k, v = decode_inputs(gen, B, T, Hkv, D, g, dtype)
+        k0, v0 = k.clone(), v.clone()
+        kc, vc = counting_inputs(k)
+        err = count_err = 0.0
+        for length in lengths:
+            o = decode_attention_kernel(q, k, v, length, D ** -0.5)
+            exp = plain_decode_attention(q, k, v, length, D ** -0.5)
+            err = max(err, (o.float() - exp.float()).abs().max().item())
+            if not torch.allclose(o.float(), exp.float(), rtol=tol, atol=tol):
+                raise AssertionError(f"decode_attention_kernel disagrees with its plain version: "
+                                     f"{[B, T, Hkv, D, g]}, {dtype}, length {length}")
+            exact = counting_exact(B, Hkv * g, g, D, length, "cuda")
+            o = decode_attention_kernel(q, kc, vc, length, D ** -0.5).double()
+            count_err = max(count_err,
+                            ((o - exact).abs() / exact.clamp(min=1 / length)).max().item())
+            if not torch.allclose(o, exact, rtol=COUNT_TOL[dtype], atol=0):
+                raise AssertionError(f"decode_attention_kernel miscounts the positions below "
+                                     f"length: {[B, T, Hkv, D, g]}, {dtype}, length {length}")
+        unwritten = bool(torch.equal(k, k0) and torch.equal(v, v0))
+        log("decode_attention_kernel_vs_plain", shape=[B, T, Hkv, D, g], dtype=str(dtype),
+            lengths=list(lengths), max_abs_err=err, tol=tol, count_max_rel_err=count_err,
+            count_tol=COUNT_TOL[dtype], cache_unwritten=unwritten)
+        if not unwritten:
+            raise AssertionError(f"the decode kernel wrote into the cache: {[B, T, Hkv, D, g]}")
+        worst = max(worst, err)
+        del q, k, v, k0, v0, kc, vc
+    torch.cuda.empty_cache()
     return worst
 
 
@@ -760,6 +839,20 @@ def bf16_vs_f32(arch, bf16, f32_logits, tol=5e-2):
                              f"prefill {err_p}")
 
 
+def decode_launches(cfg, batch, prompt, steps) -> int:
+    """The decode kernel's launches in `steps` decode steps after a
+    `prompt`-token prefill: in each global attention layer of `cfg` (GQA,
+    no window; the ring and MLA stay plain, and so does a decoder layer's
+    cross-attention beside its self-attention) one a step, two where the
+    step's length is cut into splits."""
+    from repro_torch.kernels.decode_attention import split_count
+    layers = sum(s.mixer == "attn" and s.window == 0 for s in cfg.layer_specs())
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per_layer = sum(1 if split_count(batch, cfg.n_kv_heads, prompt + i + 1, sms)[0] == 1 else 2
+                    for i in range(steps))
+    return layers * per_layer
+
+
 def phase_serve(arch, seed) -> dict:
     """Serve full-width `arch` in bf16; returns each kernel's launches in
     the served run.
@@ -806,9 +899,10 @@ def phase_serve(arch, seed) -> dict:
         prefill_ms=res["prefill_ms"], decode_ms_per_token=res["decode_ms_per_token"],
         tokens_per_s=res["tokens_per_s"], peak_mem_bytes=res["peak_mem_bytes"],
         launches=launches, n_layers=cfg.n_layers, n_params=cfg.param_count(), **reduced)
-    if launches != SERVE_LAUNCHES[arch]:
-        raise AssertionError(f"{arch}: launches in one prefill {launches}, "
-                             f"want {SERVE_LAUNCHES[arch]}")
+    want = SERVE_LAUNCHES[arch] | {"decode_attention_kernel": decode_launches(
+        cfg, BATCH, prompt, NEW - 1)}
+    if launches != want:
+        raise AssertionError(f"{arch}: launches in one serve {launches}, want {want}")
     if toks.shape != (BATCH, NEW) or toks.min() < 0 or toks.max() >= cfg.vocab:
         raise AssertionError(f"{arch}: bad generated tokens: shape {tuple(toks.shape)}")
     if not res["peak_mem_bytes"] < 80e9:
@@ -1882,6 +1976,41 @@ def time_mamba_step(gen):
                 exp_floor_ms=floor, max_abs_err=err)
 
 
+def time_decode(gen, arch, length):
+    """The decode kernel at a decode_kv cell's shape and one length, beside
+    its bound (the bf16 K and V rows below `length`, q and o), its plain
+    version and SDPA with `enable_gqa` over the cache's first `length` rows
+    (the library's yardstick; the port never calls it)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import plain_decode_attention, split_count
+    from repro_torch.kernels.ops import decode_attention_kernel
+    B, T, Hkv, D, g = DECODE_CELLS[arch]
+    q, k, v = decode_inputs(gen, B, T, Hkv, D, g, torch.bfloat16)
+    scale = D ** -0.5
+    run = lambda: decode_attention_kernel(q, k, v, length, scale)  # noqa: E731
+    out = run()
+    err = (out.float() - plain_decode_attention(q, k, v, length, scale).float()).abs().max().item()
+    ms = cuda_ms(run, reps=50)
+    plain_ms = cuda_ms(lambda: plain_decode_attention(q, k, v, length, scale), reps=3, warmup=1)
+    qt, kt, vt = q.transpose(1, 2), k[:, :length].transpose(1, 2), v[:, :length].transpose(1, 2)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale,
+                                                                enable_gqa=True), reps=50)
+    flops = 4 * B * Hkv * g * D * length                        # q.k and p.v, each query head
+    moved = 2 * B * length * Hkv * D * k.element_size() + 2 * nbytes(q)
+    b_ms, by = bound(flops, moved, PEAK_BF16_FLOPS)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    splits, _ = split_count(B, Hkv, length, sms)
+    log("kernel_time", kernel="decode_attention_kernel", cell=f"{arch}.decode_kv",
+        shape=[B, T, Hkv, D, g], length=length, dtype="bfloat16", splits=splits, ms=ms,
+        plain_ms=plain_ms, library_ms=library_ms, library="sdpa, enable_gqa",
+        bound_ms=b_ms, bound_by=by, bound_share=b_ms / ms, flops=flops, bytes=moved,
+        max_abs_err=err)
+    del q, k, v, out
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms, bound_by=by,
+                max_abs_err=err)
+
+
 SOURCES = {
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:91"),
@@ -1891,6 +2020,8 @@ SOURCES = {
                    "src/repro/kernels/rglru_scan.py:48"),
     "mamba_state_step": ("src/repro_torch/kernels/csrc/mamba_step.cu",
                          "none: the JAX package's decode state update is one plain step"),
+    "decode_attention_kernel": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+                                "none: the JAX package's attention decode is one plain step"),
 }
 
 
@@ -1907,15 +2038,19 @@ ENTRIES = (("flash_attention@qwen2-1.5b", "flash_attention", "qwen2-1.5b"),
            ("flash_attention@gemma3-27b-global", "flash_attention", "gemma3-27b"),
            ("flash_attention@qwen2-vl-7b", "flash_attention", "qwen2-vl-7b"),
            ("flash_attention@whisper-large-v3-encoder", "flash_attention", "whisper-large-v3"),
-           ("flash_attention@quickstart", "flash_attention", "quickstart"))
+           ("flash_attention@quickstart", "flash_attention", "quickstart")) + tuple(
+    (f"decode_attention_kernel@{arch}.decode_kv-{length}", "decode_attention_kernel", arch)
+    for arch in DECODE_CELLS for length in DECODE_LENGTHS)
 
 
 def phase_kernel_time(gen, launches, worst_err) -> list:
     """One entry of the `kernels` line per kernel and serving shape, each
     with the launches of the arch whose prefill gives that shape (for
     gemma3-27b's two entries, its 62 flash launches of both kinds) and the
-    times at that shape; and one for quickstart's flash call, with the
-    examples phase's launch."""
+    times at that shape; one for quickstart's flash call, with the
+    examples phase's launch; and one for the decode kernel at each
+    decode_kv cell's shape and length, with its launches in qwen2-1.5b's
+    serve (none for ai21-jamba2-mini, which is not served here)."""
     timed = {"flash_attention@qwen2-1.5b": time_flash(gen, SERVE_SHAPE, 0),
              "flash_attention@recurrentgemma-9b": time_flash(gen, LOCAL_SHAPE, LOCAL_WINDOW),
              "flash_attention@granite-moe-3b-a800m": time_flash(gen, GRANITE_SHAPE, 0),
@@ -1930,12 +2065,15 @@ def phase_kernel_time(gen, launches, worst_err) -> list:
                                                                      causal=False),
              "flash_attention@quickstart": time_flash(gen, QUICKSTART_SHAPE, QUICKSTART_WINDOW,
                                                       dtype=torch.float32, layout="bhsd")}
+    timed |= {f"decode_attention_kernel@{arch}.decode_kv-{length}": time_decode(gen, arch, length)
+              for arch in DECODE_CELLS for length in DECODE_LENGTHS}
     out = []
     for name, kernel, arch in ENTRIES:
         t = timed[name]
         source, replaces = SOURCES[kernel]
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                 "launches": launches[arch][kernel],
+                 # ai21-jamba2-mini is timed at its cell, not served here
+                 "launches": launches.get(arch, {}).get(kernel),
                  "max_abs_err": max(t["max_abs_err"], worst_err[kernel]),
                  "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                  "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
@@ -1959,7 +2097,8 @@ def main():
     worst = {"flash_attention": phase_flash_vs_plain(gen),
              "mamba_scan": phase_mamba_vs_plain(gen),
              "rglru_scan": phase_rglru_vs_plain(gen),
-             "mamba_state_step": phase_mamba_step_vs_plain(gen)}
+             "mamba_state_step": phase_mamba_step_vs_plain(gen),
+             "decode_attention_kernel": phase_decode_vs_plain(gen)}
     for arch in ARCHS:
         phase_small_model(arch, seed)
     ws = wrappers()

@@ -20,7 +20,7 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("flash_attention", "mamba_scan", "rglru_scan", "mamba_step")
+SOURCES = ("flash_attention", "mamba_scan", "rglru_scan", "mamba_step", "decode_attention")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -4,7 +4,8 @@ Two tiers of entry point live here, as in the JAX package's
 `repro/kernels/ops.py`:
 
   * the kernel wrappers themselves (one object, one launch counter):
-    `flash_attention`, `mamba_scan`, `rglru_scan` and `mamba_state_step`;
+    `flash_attention`, `mamba_scan`, `rglru_scan`, `mamba_state_step` and
+    `decode_attention_kernel`;
   * per-example *task bodies* (`matmul_task`, `attention_task`) — plain
     torch functions over a single example, the granularity the
     device-batched executor fuses (`repro_torch.core.devicepool`,
@@ -20,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.decode_attention import decode_attention_kernel
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.mamba_scan import mamba_scan
 from repro_torch.kernels.mamba_step import mamba_state_step
@@ -27,7 +29,7 @@ from repro_torch.kernels.ref import ref_attention
 from repro_torch.kernels.rglru_scan import rglru_scan
 
 __all__ = ["flash_attention", "mamba_scan", "rglru_scan", "mamba_state_step",
-           "matmul_task", "attention_task"]
+           "decode_attention_kernel", "matmul_task", "attention_task"]
 
 
 # -- per-example task bodies (device-batched executor granularity) ----------

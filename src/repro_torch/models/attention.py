@@ -20,12 +20,16 @@ closely:
 
 With `cfg.use_pallas`, GQA self-attention in prefill (and in the encoder,
 which runs in train mode) goes through the hand-written flash kernel
-(`repro_torch.kernels.ops.flash_attention`) instead.  Decode stays plain:
-the reference has no decode kernel.  Training runs the plain path under
+(`repro_torch.kernels.ops.flash_attention`) instead, and on the card a
+decode step over a global cache goes through the decode kernel
+(`repro_torch.kernels.ops.decode_attention_kernel`: each kv head's rows read
+once, up to the step's position) where no axis rules are active; the ring,
+cross-attention, the dry run's split-T decode and the CPU stay plain (the
+reference has no decode kernel).  Training runs the plain path under
 autograd: the kernel is forward-only, as the reference's is (it defines no
 VJP), so `use_pallas` in a GQA layer's train mode raises while autograd
 records; without it (whisper's encoder inside a prefill) the kernel runs.
-Cross-attention and MLA never reach the kernel, in any mode, as in the
+Cross-attention and MLA never reach the kernels, in any mode, as in the
 reference, so `use_pallas` changes nothing there.
 
 The local layers' ring cache departs from the reference on purpose: prefill
@@ -789,6 +793,9 @@ def apply_attn(cfg: ModelConfig, p, x, *, window: int, causal: bool = True,
             # the ring is whole along its slots
             o = _decode_per_shard(q, _expand_kv(cfg, cache["k"]), _expand_kv(cfg, cache["v"]),
                                   mask, scale)
+        elif cfg.use_pallas and q.is_cuda and active_rules(q, cache["k"]) is None:
+            from repro_torch.kernels import ops as kops
+            o = kops.decode_attention_kernel(q, cache["k"], cache["v"], pos_t + 1, scale)
         else:
             mask = torch.arange(T, device=x.device)[None] <= pos_t
             o = _decode(cfg, q, cache["k"], cache["v"], mask, scale)
